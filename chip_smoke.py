@@ -1,0 +1,346 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`gcdlss_tpu_torch`) once on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+
+  1. build: compile `gcdlss_tpu_torch/csrc/*.cu` with nvcc (or reuse the
+     library built from the same sources) and print the build time;
+  2. kernels: the k^3 neighbor map (K3), the gather-GEMM forward (K1) and its
+     backward (K2), on CUDA tensors at the main path's shapes (2 synthetic
+     80k-point scans at 0.05 m voxels, cap0 = 138,240), each held against its
+     plain PyTorch version on the same bf16-rounded inputs and timed beside it
+     with CUDA events;
+  3. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
+     on the card (kernels) and on the CPU (plain versions) with the same
+     weights, relative error <= REF_TOL;
+  4. slice: Stage-1 training as a user runs it: `ExpPretrain` with MinkUNet34
+     in bf16, 3 steps at batch 2 through the repository's
+     `SemanticKITTIDataset` and `PrefetchLoader`, then `validate` on 2 scans.
+     Every kernel's launch count is set to 0 just before and read just after:
+     each must have launched.
+
+Prints the card's name and power limit, a JSON line with every kernel
+comparison, and as its last line {"ok": true, "device": {...}}. Exits non-zero
+without that line when there is no CUDA device or a phase fails.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+POINTS_PER_SCAN = 80_000
+VOXEL_SIZE = 0.05
+CAP0 = 138_240
+BATCH = 2
+OUT_TOL = 1e-2  # max|kernel - plain| <= OUT_TOL * max|plain| (outputs, dX)
+DW_TOL = 5e-3  # relative Frobenius error of dW
+REF_TOL = 2e-2  # relative Frobenius error of the small-input logits, card vs CPU
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_time_ms(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def voxel_batch(rng, device):
+    """Two synthetic scans quantized at VOXEL_SIZE, concatenated in (b, x, y, z)
+    order into CAP0 rows, as the host loader collates them."""
+    import torch
+
+    from bench import synth_scan_points
+    from gcdlss_tpu.data.quantize_np import sparse_quantize_np
+
+    coords = np.zeros((CAP0, 4), np.int32)
+    off = 0
+    for b in range(BATCH):
+        vc, _, _ = sparse_quantize_np(synth_scan_points(rng, POINTS_PER_SCAN), VOXEL_SIZE)
+        take = min(len(vc), CAP0 - off)
+        coords[off:off + take, 0] = b
+        coords[off:off + take, 1:] = vc[:take]
+        off += take
+    valid = np.arange(CAP0) < off
+    return torch.as_tensor(coords, device=device), torch.as_tensor(valid, device=device)
+
+
+def kernel_phase(device) -> list:
+    import torch
+
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan import build_unet_plan, join_neighbor_map
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
+    from gcdlss_tpu_torch.train.common import default_caps
+
+    rng = np.random.default_rng(0)
+    caps = default_caps(CAP0)
+    coords, valid = voxel_batch(rng, device)
+    plan = build_unet_plan(coords, valid, caps, presorted=True)
+    torch.cuda.synchronize()
+    log(f"plan: caps {caps}, valid rows per level "
+        f"{[int(lv.valid.sum()) for lv in plan.levels]}")
+    rows = []
+
+    # K3: every map of the plan against the join path, bit for bit
+    for lev, lv in enumerate(plan.levels):
+        for k1 in ((5, 3) if lev == 0 else (3,)):
+            got = cube_neighbor_map(lv.key_hi, lv.key_lo, k1)
+            ref = join_neighbor_map(lv.key_hi, lv.key_lo, k1)
+            mism = int((got != ref).sum())
+            if lev == 0 and k1 == 5 and not torch.equal(got, plan.stem_nbr):
+                raise AssertionError("K3: plan stem map differs from a fresh launch")
+            line = f"K3 L{lev} k{k1}: cap {lv.key_hi.shape[0]} mismatches {mism}"
+            if lev <= 1:
+                ms = cuda_time_ms(lambda: cube_neighbor_map(lv.key_hi, lv.key_lo, k1))
+                pms = cuda_time_ms(lambda: join_neighbor_map(lv.key_hi, lv.key_lo, k1))
+                rows.append(dict(name=f"K3 cube_map L{lev} k{k1}", route="cuda",
+                                 source="gcdlss_tpu_torch/csrc/cube_map.cu",
+                                 replaces="gcdlss_tpu/ops/plan_kernel.py:378",
+                                 max_abs_err=float(mism), ms=ms, plain_ms=pms))
+                line += f" | kernel {ms:.3f} ms, plain {pms:.3f} ms"
+            log(line)
+            if mism:
+                raise AssertionError(f"K3 L{lev} k{k1}: {mism} entries differ from the join path")
+
+    # K1/K2 at the main path's convs
+    lv, pools = plan.levels, plan.pools
+    cases = [  # name, x rows, fwd book, adjoint book, ci, co
+        ("stem L0 k5 1->32", lv[0].valid, plan.stem_nbr, plan.stem_nbr.flip(1), 1, 32),
+        ("L0 k3 128->96", lv[0].valid, lv[0].nbr3, lv[0].nbr3.flip(1), 128, 96),
+        ("L3 k3 256->256", lv[3].valid, lv[3].nbr3, lv[3].nbr3.flip(1), 256, 256),
+        ("down L0->L1 32->32", lv[0].valid, pools[0].children, pools[0].upmap, 32, 32),
+        ("up L4->L3 256->256", lv[4].valid, pools[3].upmap, pools[3].children, 256, 256),
+    ]
+    for name, xvalid, nbr, adj, ci, co in cases:
+        nbr, adj = nbr.contiguous(), adj.contiguous()
+        k = nbr.shape[1]
+        x = (torch.randn(xvalid.shape[0], ci, device=device)
+             * xvalid[:, None]).to(torch.bfloat16)
+        w = (torch.randn(k, ci, co, device=device) * (2.0 / (k * ci)) ** 0.5).to(torch.bfloat16)
+        g = torch.randn(nbr.shape[0], co, device=device).to(torch.bfloat16)
+
+        out = gather_gemm(x, nbr, w)
+        ref = plain.gather_conv(x, nbr, w)
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        ms = cuda_time_ms(lambda: gather_gemm(x, nbr, w))
+        pms = cuda_time_ms(lambda: plain.gather_conv(x, nbr, w))
+        log(f"K1 {name}: max|d| {err:.3e} (max|ref| {scale:.3e}) | "
+            f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        if not err <= OUT_TOL * scale:
+            raise AssertionError(f"K1 {name}: error {err} above {OUT_TOL} x {scale}")
+        rows.append(dict(name=f"K1 gather_gemm {name}", route="cuda",
+                         source="gcdlss_tpu_torch/csrc/gather_gemm.cu",
+                         replaces="gcdlss_tpu/ops/fused_conv.py:312",
+                         max_abs_err=err, ms=ms, plain_ms=pms))
+
+        dx, dw = gather_gemm_backward(x, g, adj, w)
+        rdx, rdw = plain.gather_conv_backward(x, g, adj, w)
+        dx_err = float((dx - rdx).abs().max())
+        dx_scale = float(rdx.abs().max())
+        dw_rel = float(torch.linalg.vector_norm(dw - rdw) / torch.linalg.vector_norm(rdw))
+        ms = cuda_time_ms(lambda: gather_gemm_backward(x, g, adj, w))
+        pms = cuda_time_ms(lambda: plain.gather_conv_backward(x, g, adj, w))
+        log(f"K2 {name}: dX max|d| {dx_err:.3e} (max|ref| {dx_scale:.3e}), "
+            f"dW rel-Frobenius {dw_rel:.3e} | kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        if not dx_err <= OUT_TOL * dx_scale:
+            raise AssertionError(f"K2 {name}: dX error {dx_err} above {OUT_TOL} x {dx_scale}")
+        if not dw_rel <= DW_TOL:
+            raise AssertionError(f"K2 {name}: dW relative error {dw_rel} above {DW_TOL}")
+        rows.append(dict(name=f"K2 gather_gemm_backward {name}", route="cuda",
+                         source="gcdlss_tpu_torch/csrc/gather_gemm.cu",
+                         replaces="gcdlss_tpu/ops/fused_conv.py:379",
+                         max_abs_err=max(dx_err, float((dw - rdw).abs().max())),
+                         ms=ms, plain_ms=pms))
+    return rows
+
+
+def reference_phase(device) -> None:
+    """MinkUNet34 forward on a small input: kernels on the card against the
+    plain versions on the CPU, same weights, bf16 activations on both."""
+    import copy
+
+    import torch
+
+    from gcdlss_tpu.data.quantize_np import sparse_quantize_np
+    from gcdlss_tpu_torch.ops.plan import build_unet_plan
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.pretrain import PretrainConfig, make_model
+
+    rng = np.random.default_rng(1)
+    pts = rng.uniform([-6, -6, -2], [6, 6, 1], (12_000, 3)).astype(np.float32)
+    vc, _, _ = sparse_quantize_np(pts, 0.1)
+    cap0 = -(-len(vc) // 256) * 256
+    coords = np.zeros((cap0, 4), np.int32)
+    coords[:len(vc), 1:] = vc
+    valid = np.arange(cap0) < len(vc)
+    feats = rng.uniform(0, 1, (cap0, 1)).astype(np.float32) * valid[:, None]
+    cfg = PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
+                         voxel_caps=default_caps(cap0), dtype="bfloat16")
+    # eval-mode batch norm: with batch statistics, bf16 activations turn a
+    # change of f32 summation order alone into ~3% relative change of these
+    # logits (reversing the plain conv's offset loop on the CPU: 3.1e-2 in
+    # training mode, 2.6e-3 in eval mode), which would hide a real fault
+    model = make_model(cfg, torch.Generator().manual_seed(0)).eval()
+    outs = {}
+    for dev, m in (("cpu", model), (device, copy.deepcopy(model).to(device))):
+        with torch.no_grad():
+            plan = build_unet_plan(torch.as_tensor(coords, device=dev),
+                                   torch.as_tensor(valid, device=dev), cfg.voxel_caps,
+                                   presorted=True)
+            outs[str(dev)] = m(plan, torch.as_tensor(feats, device=dev))["logits"].cpu()
+    ref, got = outs["cpu"], outs[str(device)]
+    err = float((got - ref).abs().max())
+    rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    log(f"reference: MinkUNet34 logits on {len(vc)} voxels, card vs CPU "
+        f"rel-Frobenius {rel:.3e}, max|d| {err:.3e} (max|ref| {float(ref.abs().max()):.3e})")
+    # both sides round every layer's output to bf16; a last-place flip where
+    # the f32 sums differ in order propagates through the 34 layers, so the
+    # bound is on the whole logit tensor, ~8x the order-flip spread above
+    if not (torch.isfinite(got).all() and rel <= REF_TOL):
+        raise AssertionError(f"reference: card logits differ from the CPU's by {rel} (relative)")
+
+
+def write_kitti_tree(root: Path, rng) -> None:
+    """SemanticKITTI layout: 6 train scans (seq 00), 2 valid scans (seq 08),
+    80k synthetic points each, labels drawn from the 19 classes' raw ids."""
+    from bench import synth_scan_points
+    from gcdlss_tpu.data.meta import KITTI_LEARNING_MAP_INV
+
+    raw_ids = np.array([v for k, v in KITTI_LEARNING_MAP_INV.items() if k >= 0], np.int32)
+    for seq, n in (("00", 3 * BATCH), ("08", BATCH)):
+        vdir = root / "sequences" / seq / "velodyne"
+        ldir = root / "sequences" / seq / "labels"
+        vdir.mkdir(parents=True)
+        ldir.mkdir(parents=True)
+        for i in range(n):
+            pts = synth_scan_points(rng, POINTS_PER_SCAN)
+            rem = rng.uniform(0, 1, (POINTS_PER_SCAN, 1)).astype(np.float32)
+            np.hstack([pts, rem]).astype(np.float32).tofile(vdir / f"{i:06d}.bin")
+            rng.choice(raw_ids, POINTS_PER_SCAN).astype(np.int32).tofile(ldir / f"{i:06d}.label")
+
+
+def slice_phase(device, gpu_name: str) -> dict:
+    import torch
+
+    from gcdlss_tpu.data import (PrefetchLoader, SemanticKITTIDataset, build_label_mapping,
+                                 dataset_meta, split_table)
+    from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.pretrain import ExpPretrain, PretrainConfig
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map}
+    caps = default_caps(CAP0)
+    meta = dataset_meta("SemanticKITTI")
+    unknown, _ = split_table("SemanticKITTI", 1)
+    mapping, inv, unk = build_label_mapping(unknown, meta["learning_map_inv"].keys())
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = Path(tmp)
+        write_kitti_tree(root, np.random.default_rng(2))
+        cfg = PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=unk,
+                             voxel_caps=caps, arch="MinkUNet34", planes=DEFAULT_PLANES,
+                             dtype="bfloat16", steps_per_epoch=3, epochs=50)
+        module = ExpPretrain(cfg, mapping, inv, seed=0, device=device)
+        train_ds = SemanticKITTIDataset(str(root), "train", voxel_size=VOXEL_SIZE,
+                                        downsampling=POINTS_PER_SCAN, augment=True,
+                                        label_mapping=mapping, unknown_labels=unknown, seed=0)
+        val_ds = SemanticKITTIDataset(str(root), "valid", voxel_size=VOXEL_SIZE,
+                                      label_mapping=mapping, unknown_labels=unknown)
+        loader = PrefetchLoader(train_ds, BATCH, caps[0], num_workers=2, seed=0)
+        vloader = PrefetchLoader(val_ds, BATCH, caps[0], point_cap=POINTS_PER_SCAN,
+                                 shuffle=False, num_workers=2, drop_last=False)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        mean_loss = module.train_epoch(loader)
+        vm = module.validate(vloader)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    steps = module.step_log
+    for i, s in enumerate(steps):
+        log(f"slice step {i}: loss {s['loss']:.6f} plan_overflow {s['plan_overflow']} "
+            f"time {s['seconds'] * 1e3:.1f} ms ({gpu_name})")
+    log(f"slice: mean loss {mean_loss:.6f}; validate loss {vm['loss']:.6f} mIoU {vm['mIoU']:.6f} "
+        f"confusion sum {int(vm['conf'].sum())}; peak memory {peak_gib:.3f} GiB; "
+        f"launches {launches}")
+    if len(steps) != 3:
+        raise AssertionError(f"slice: {len(steps)} train steps, expected 3")
+    if not all(np.isfinite(s["loss"]) for s in steps):
+        raise AssertionError("slice: non-finite loss")
+    if any(s["plan_overflow"] != 0 for s in steps):
+        raise AssertionError("slice: the plan dropped voxels (plan_overflow > 0)")
+    if not vm["conf"].sum() > 0:
+        raise AssertionError("slice: empty confusion matrix")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"slice: a kernel was not launched: {launches}")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from gcdlss_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    gpu_name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {gpu_name}")
+
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    log(f"build: {lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
+
+    rows = kernel_phase(device)
+    reference_phase(device)
+    launches = slice_phase(device, gpu_name)
+    for r in rows:
+        r["launches"] = launches[r["name"][:2]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

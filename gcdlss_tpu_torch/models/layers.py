@@ -1,0 +1,124 @@
+"""Sparse layers on padded `[N, C]` voxel rows (PyTorch).
+
+Port of `gcdlss_tpu/models/layers.py`. Every layer takes explicit plan books
+(`ops.plan`) and a validity mask; invalid rows stay zero. Every sparse conv,
+the pool convs included, goes through the gather-GEMM kernels
+(`ops.fused_conv`) on the card and their plain versions on the CPU.
+Parameter names follow the reference checkpoint (`kernel` for convs,
+`weight`/`bias`/`running_mean`/`running_var` for batch norms).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.conv import masked_batch_norm_stats
+from ..ops.fused_conv import pool_conv, subm_conv
+
+
+def mask_rows(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return x * valid[:, None].to(x.dtype)
+
+
+def kaiming_conv_(w: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """He-normal for sparse conv kernels [K, Ci, Co] with fan_out = K * Co
+    (`ME.utils.kaiming_normal_(mode="fan_out", nonlinearity="relu")`)."""
+    k, _, co = w.shape
+    with torch.no_grad():
+        return w.normal_(0.0, math.sqrt(2.0 / (k * co)), generator=generator)
+
+
+class SparseConv(nn.Module):
+    """Submanifold sparse convolution over a k^3 neighbor book."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_volume: int = 27,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kernel = nn.Parameter(kaiming_conv_(
+            torch.empty(kernel_volume, in_channels, out_channels), generator))
+
+    def forward(self, x, nbr, valid):
+        return mask_rows(subm_conv(x, nbr, self.kernel), valid)
+
+
+class SparseDownConv(nn.Module):
+    """Strided k=2 s=2 conv onto the next coarser level (`children` book)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kernel = nn.Parameter(kaiming_conv_(
+            torch.empty(8, in_channels, out_channels), generator))
+
+    def forward(self, x, pool, out_valid):
+        return mask_rows(pool_conv(x, pool.children, pool.upmap, self.kernel), out_valid)
+
+
+class SparseUpConv(nn.Module):
+    """Transpose k=2 s=2 conv back onto the finer level (`upmap` book)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kernel = nn.Parameter(kaiming_conv_(
+            torch.empty(8, in_channels, out_channels), generator))
+
+    def forward(self, x_coarse, pool, out_valid):
+        return mask_rows(pool_conv(x_coarse, pool.upmap, pool.children, self.kernel),
+                         out_valid)
+
+
+class SparseBatchNorm(nn.Module):
+    """Batch norm over valid voxels (torch semantics: momentum 0.1, eps 1e-5).
+
+    Normalizes with the biased batch variance; `running_var` stores the
+    unbiased estimate, as `torch.nn.BatchNorm1d` inside `MinkowskiBatchNorm`.
+    Statistics and the affine map are f32; the output has x's dtype."""
+
+    def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x, valid):
+        if self.training:
+            mean, var, cnt = masked_batch_norm_stats(x.float(), valid)
+            with torch.no_grad():
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = (x.float() - mean) * scale + self.bias
+        return mask_rows(out.to(x.dtype), valid)
+
+
+class Linear(nn.Module):
+    """1x1 conv / dense layer with the reference's `kernel [Ci, Co]` layout.
+
+    Computes in `dtype` (the activation dtype inside the backbone, f32 for
+    heads); a plain matrix product, as the JAX package leaves it to XLA."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        # lecun-normal, the flax Dense default
+        self.kernel = nn.Parameter(torch.empty(in_channels, out_channels).normal_(
+            0.0, 1.0 / math.sqrt(in_channels), generator=generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x):
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y

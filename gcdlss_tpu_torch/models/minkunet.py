@@ -1,0 +1,151 @@
+"""MinkUNet on the port's sparse-conv engine (PyTorch).
+
+Port of `gcdlss_tpu/models/minkunet.py` (reference `models/minkunet.py:44-132`,
+`models/resnet.py:90-122`, `models/multiheadminkunet.py:309-340`): k=5 stem,
+four k=2 s=2 downs and four transpose ups with skip concatenation, residual
+block stacks per level, and the linear `final` head. Submodules carry the
+reference checkpoint's names (`encoder.conv0p1s1`, `encoder.conv1p1s2`,
+`encoder.block1.0.conv1`, `encoder.block1.0.downsample.0`, `encoder.final`),
+so its state dicts map on key by key (`utils.weights`). Kernel offsets keep
+this repository's order (z fastest).
+
+Precision (docs/ARCHITECTURE.md §3): activations in `dtype` (bf16 on the
+card), parameters, batch-norm statistics, the head and the loss in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import (Linear, SparseBatchNorm, SparseConv, SparseDownConv,
+                     SparseUpConv, mask_rows)
+
+# name -> (block type, blocks per stage). Only 'basic' blocks are ported.
+ARCHS = {
+    "MinkUNet14": ("basic", (1, 1, 1, 1, 1, 1, 1, 1)),
+    "MinkUNet18": ("basic", (2, 2, 2, 2, 2, 2, 2, 2)),
+    "MinkUNet34": ("basic", (2, 3, 4, 6, 2, 2, 2, 2)),
+    "MinkUNet50": ("bottleneck", (2, 3, 4, 6, 2, 2, 2, 2)),
+    "MinkUNet101": ("bottleneck", (2, 3, 4, 23, 2, 2, 2, 2)),
+}
+
+DEFAULT_PLANES = (32, 64, 128, 256, 256, 128, 96, 96)
+
+
+class BasicBlock(nn.Module):
+    """conv3-bn-relu-conv3-bn + (1x1 projection if the width changes), relu."""
+
+    def __init__(self, inplanes: int, planes: int, dtype: torch.dtype,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv1 = SparseConv(inplanes, planes, 27, generator)
+        self.norm1 = SparseBatchNorm(planes)
+        self.conv2 = SparseConv(planes, planes, 27, generator)
+        self.norm2 = SparseBatchNorm(planes)
+        self.downsample = None
+        if inplanes != planes:
+            self.downsample = nn.ModuleList([
+                Linear(inplanes, planes, bias=False, dtype=dtype, generator=generator),
+                SparseBatchNorm(planes),
+            ])
+
+    def forward(self, x, nbr, valid):
+        out = torch.relu(self.norm1(self.conv1(x, nbr, valid), valid))
+        out = self.norm2(self.conv2(out, nbr, valid), valid)
+        residual = x
+        if self.downsample is not None:
+            proj, norm = self.downsample
+            residual = norm(proj(x), valid)
+        return mask_rows(torch.relu(out + residual), valid)
+
+
+class ResLayer(nn.ModuleList):
+    """A stack of residual blocks named 0, 1, ... as in the reference."""
+
+    def __init__(self, inplanes: int, planes: int, blocks: int, dtype: torch.dtype,
+                 generator: torch.Generator | None = None):
+        super().__init__([BasicBlock(inplanes if i == 0 else planes, planes, dtype, generator)
+                          for i in range(blocks)])
+
+    def forward(self, x, nbr, valid):
+        for block in self:
+            x = block(x, nbr, valid)
+        return x
+
+
+class MinkUNetBackbone(nn.Module):
+    """Sparse UNet over a 5-level `UNetPlan`; returns stride-1 features."""
+
+    def __init__(self, arch: str = "MinkUNet34", planes: tuple = DEFAULT_PLANES,
+                 in_channels: int = 1, init_dim: int = 32,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kind, layers = ARCHS[arch]
+        if kind != "basic":
+            raise NotImplementedError(f"{arch}: bottleneck blocks are not ported yet")
+        self.dtype = dtype
+        g = generator
+        self.conv0p1s1 = SparseConv(in_channels, init_dim, 125, g)
+        self.bn0 = SparseBatchNorm(init_dim)
+        c = init_dim
+        skip_channels = [c]
+        for i in range(4):
+            self.add_module(f"conv{i + 1}p{2 ** i}s2", SparseDownConv(c, c, g))
+            self.add_module(f"bn{i + 1}", SparseBatchNorm(c))
+            self.add_module(f"block{i + 1}", ResLayer(c, planes[i], layers[i], dtype, g))
+            c = planes[i]
+            skip_channels.append(c)
+        for j in range(4):
+            lvl = 3 - j
+            self.add_module(f"convtr{4 + j}p{2 ** (4 - j)}s2",
+                            SparseUpConv(c, planes[4 + j], g))
+            self.add_module(f"bntr{4 + j}", SparseBatchNorm(planes[4 + j]))
+            self.add_module(f"block{5 + j}", ResLayer(
+                planes[4 + j] + skip_channels[lvl], planes[4 + j], layers[4 + j], dtype, g))
+            c = planes[4 + j]
+        self.out_channels = c
+
+    def forward(self, plan, feats):
+        lv, pools = plan.levels, plan.pools
+        x = self.conv0p1s1(feats.to(self.dtype), plan.stem_nbr, lv[0].valid)
+        x = torch.relu(self.bn0(x, lv[0].valid))
+        skips = [x]
+        for i in range(4):
+            down = getattr(self, f"conv{i + 1}p{2 ** i}s2")
+            x = down(x, pools[i], lv[i + 1].valid)
+            x = torch.relu(getattr(self, f"bn{i + 1}")(x, lv[i + 1].valid))
+            x = getattr(self, f"block{i + 1}")(x, lv[i + 1].nbr3, lv[i + 1].valid)
+            skips.append(x)
+        for j in range(4):
+            lvl = 3 - j
+            up = getattr(self, f"convtr{4 + j}p{2 ** (4 - j)}s2")
+            x = up(x, pools[lvl], lv[lvl].valid)
+            x = torch.relu(getattr(self, f"bntr{4 + j}")(x, lv[lvl].valid))
+            x = torch.cat([x, skips[lvl]], dim=1)
+            x = getattr(self, f"block{5 + j}")(x, lv[lvl].nbr3, lv[lvl].valid)
+        return x  # [cap0, planes[7]]
+
+
+class MinkUNetSeg(nn.Module):
+    """Backbone + linear `final` head: the Stage-1 pretrain model.
+
+    Returns {'logits' [cap0, num_classes] f32, 'feats' [cap0, C] f32}. The
+    head is registered inside the encoder (`encoder.final`), where the
+    reference checkpoint keeps it."""
+
+    def __init__(self, num_classes: int, arch: str = "MinkUNet34",
+                 planes: tuple = DEFAULT_PLANES, in_channels: int = 1,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.encoder = MinkUNetBackbone(arch, planes, in_channels, dtype=dtype,
+                                        generator=generator)
+        self.encoder.final = Linear(self.encoder.out_channels, num_classes,
+                                    generator=generator)
+
+    def forward(self, plan, feats):
+        h = self.encoder(plan, feats).float()
+        logits = self.encoder.final(h)
+        return {"logits": mask_rows(logits, plan.levels[0].valid), "feats": h}

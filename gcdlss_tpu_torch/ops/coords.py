@@ -1,0 +1,108 @@
+"""Integer voxel coordinates: key packing and sorted-unique (PyTorch).
+
+Port of `gcdlss_tpu/ops/coords.py`. Coordinates are `(batch, x, y, z)` int32
+in stride units, packed into the same `(hi, lo)` int32 pair as the JAX
+package:
+
+    hi = b * FIELD + (x + COORD_OFFSET)
+    lo = (y + COORD_OFFSET) * FIELD + (z + COORD_OFFSET)
+
+For sorting and searching the pair is packed into one int64 key,
+`hi << 32 | lo`; both words are non-negative, so int64 order is the
+lexicographic `(hi, lo)` order and the sentinel pair sorts last.
+"""
+
+from __future__ import annotations
+
+import torch
+
+FIELD = 1 << 15
+COORD_OFFSET = 1 << 14
+SENTINEL_HI = (1 << 31) - 1
+SENTINEL_LO = (1 << 31) - 1
+
+
+def encode_coords(coords: torch.Tensor, valid: torch.Tensor):
+    """Pack [N, 4] int32 (b, x, y, z) into (hi, lo) int32 keys.
+
+    Invalid rows get the sentinel key. Spatial coords are clipped into the
+    representable field (±16383 stride units)."""
+    b = coords[:, 0].to(torch.int32)
+    xyz = (coords[:, 1:4].to(torch.int32) + COORD_OFFSET).clamp(0, FIELD - 1)
+    hi = torch.where(valid, b * FIELD + xyz[:, 0], SENTINEL_HI).to(torch.int32)
+    lo = torch.where(valid, xyz[:, 1] * FIELD + xyz[:, 2], SENTINEL_LO).to(torch.int32)
+    return hi, lo
+
+
+def decode_keys(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Inverse of encode_coords -> [N, 4] int32. Sentinel rows undefined."""
+    b = torch.div(hi, FIELD, rounding_mode="floor")
+    x = hi % FIELD - COORD_OFFSET
+    y = torch.div(lo, FIELD, rounding_mode="floor") - COORD_OFFSET
+    z = lo % FIELD - COORD_OFFSET
+    return torch.stack([b, x, y, z], dim=1).to(torch.int32)
+
+
+def pack_keys(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) int32 -> int64 keys in the same order."""
+    return (hi.to(torch.int64) << 32) | lo.to(torch.int64)
+
+
+def _unique_from_sorted(sk: torch.Tensor, order: torch.Tensor, capacity: int):
+    """Group sorted int64 keys; `order[p]` is the input row at sorted position
+    p (n where no input row sits). Returns the uniques, `rep` and the group id
+    per sorted position clamped to `capacity`."""
+    n = sk.shape[0]
+    dev = sk.device
+    sentinel = (SENTINEL_HI << 32) | SENTINEL_LO
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = sk[1:] != sk[:-1]
+    gid = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    valid_sorted = sk != sentinel
+    count = (first & valid_sorted).sum().to(torch.int32)
+    keep = valid_sorted & (gid < capacity)
+    gid_clamped = torch.where(keep, gid, capacity).to(torch.int32)
+    # the first row of each group is its first occurrence (stable order)
+    head = first & keep
+    uniq = torch.full((capacity,), sentinel, dtype=torch.int64, device=dev)
+    rep = torch.full((capacity,), n, dtype=torch.int32, device=dev)
+    uniq[gid[head].long()] = sk[head]
+    rep[gid[head].long()] = order[head].to(torch.int32)
+    uh = (uniq >> 32).to(torch.int32)
+    ul = (uniq & 0xFFFFFFFF).to(torch.int32)
+    return (uh, ul), rep, gid_clamped, count
+
+
+def sorted_unique(hi: torch.Tensor, lo: torch.Tensor, capacity: int):
+    """Sorted unique over packed keys with a static output capacity.
+
+    Returns ((uniq_hi, uniq_lo) [capacity] sentinel-padded, rep [capacity]
+    first-occurrence input row (n for padding), inverse [n] output row per
+    input row (capacity where dropped or invalid), count: the true number of
+    valid unique keys before the capacity clamp)."""
+    n = hi.shape[0]
+    sk, order = torch.sort(pack_keys(hi, lo), stable=True)
+    (uh, ul), rep, gid_clamped, count = _unique_from_sorted(sk, order, capacity)
+    inverse = torch.empty(n, dtype=torch.int32, device=hi.device)
+    inverse[order] = gid_clamped
+    return (uh, ul), rep, inverse, count
+
+
+def sorted_unique_presorted(hi: torch.Tensor, lo: torch.Tensor, capacity: int):
+    """`sorted_unique` for inputs whose valid rows are already key-sorted
+    (host quantize output and its batch concatenation): a validity compaction
+    replaces the sort. Same returns as `sorted_unique`."""
+    n = hi.shape[0]
+    dev = hi.device
+    valid = hi != SENTINEL_HI
+    rows = torch.nonzero(valid).squeeze(1)
+    m = rows.shape[0]
+    sentinel = (SENTINEL_HI << 32) | SENTINEL_LO
+    sk = torch.full((n,), sentinel, dtype=torch.int64, device=dev)
+    sk[:m] = pack_keys(hi[rows], lo[rows])
+    order = torch.full((n,), n, dtype=torch.int64, device=dev)
+    order[:m] = rows
+    (uh, ul), rep, gid_clamped, count = _unique_from_sorted(sk, order, capacity)
+    inverse = torch.full((n,), capacity, dtype=torch.int32, device=dev)
+    inverse[rows] = gid_clamped[:m]
+    return (uh, ul), rep, inverse, count

@@ -1,0 +1,95 @@
+"""Carry weights into a port `MinkUNetSeg`.
+
+Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
+
+  * `load_jax_params`: the JAX package's `params` / `batch_stats` trees (nested
+    dicts of numpy arrays) -> the port's modules. Both keep the same kernel
+    layouts ([K, Ci, Co], z-fastest offsets, `dcode` pool order), so only the
+    names change (`_ref_name`: `conv1s2` -> `conv1p1s2`, `block1/block0` ->
+    `block1.0`, `proj` -> `downsample.0`, BN `scale` -> `weight`).
+  * `load_reference_state_dict`: a reference MinkowskiEngine checkpoint
+    (`encoder.*.kernel`, `*.bn.weight`, ...) -> the port, permuting kernel
+    offsets from ME's order as `import_minkunet` does (`me_order`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gcdlss_tpu.utils.import_torch import _conv_in, _ref_name
+
+from ..models.layers import Linear, SparseBatchNorm
+
+_BN = (("weight", "scale", "params"), ("bias", "bias", "params"),
+       ("running_mean", "mean", "batch_stats"), ("running_var", "var", "batch_stats"))
+
+
+def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
+    """Port state-dict keys -> numpy arrays from JAX `params`/`batch_stats`."""
+    out = {}
+
+    def module(path: str, p: dict, s: dict | None):
+        if "scale" in p:  # batch norm
+            for ours, theirs, tree in _BN:
+                out[f"{path}.{ours}"] = (p if tree == "params" else s)[theirs]
+            return
+        for name, arr in p.items():
+            out[f"{path}.{name}"] = arr
+
+    enc_p, enc_s = params["encoder"], batch_stats.get("encoder", {})
+    for name, mod in enc_p.items():
+        path = "encoder." + _ref_name(name)
+        if not name.startswith("block"):
+            module(path, mod, enc_s.get(name))
+            continue
+        for bname, blk in mod.items():
+            bpath = f"{path}.{bname.replace('block', '')}"
+            bs = enc_s.get(name, {}).get(bname, {})
+            for sub, sp in blk.items():
+                ours = {"proj": "downsample.0", "proj_norm": "downsample.1"}.get(sub, sub)
+                module(f"{bpath}.{ours}", sp, bs.get(sub))
+    module("encoder.final", params["final"], None)
+    return out
+
+
+def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
+    """Load the JAX package's trees into `model` (every tensor must match)."""
+    sd = {k: torch.as_tensor(np.array(v, np.float32))
+          for k, v in jax_to_state_dict(params, batch_stats).items()}
+    model.load_state_dict(sd, strict=True)
+
+
+def load_reference_state_dict(model: torch.nn.Module, sd: dict, prefix: str = "",
+                              me_order: str = "first_fastest") -> list:
+    """Load a reference-layout state dict (numpy arrays or CPU tensors).
+
+    Kernel offsets are permuted from ME's order (`me_order`, see
+    `gcdlss_tpu.utils.import_torch.offset_permutation`). Tensors the dict
+    lacks (e.g. heads a Stage-1 checkpoint has no use for) keep their values,
+    like the reference's strict=False load; their names are returned."""
+    new, missing = {}, []
+
+    def take(ours: str, key: str, value_fn):
+        if key in sd:
+            new[ours] = torch.as_tensor(np.array(value_fn(key), np.float32))
+        else:
+            missing.append(ours)
+
+    def raw(key):
+        v = sd[key]
+        return v.detach().cpu().numpy() if hasattr(v, "detach") else v
+
+    for name, mod in model.named_modules():
+        ref = prefix + name
+        if isinstance(mod, SparseBatchNorm):
+            for field in ("weight", "bias", "running_mean", "running_var"):
+                take(f"{name}.{field}", f"{ref}.bn.{field}", raw)
+        elif hasattr(mod, "kernel"):
+            shape = tuple(mod.kernel.shape)
+            take(f"{name}.kernel", f"{ref}.kernel",
+                 lambda key: _conv_in({key: raw(key)}, key, shape, me_order))
+            if isinstance(mod, Linear) and mod.bias is not None:
+                take(f"{name}.bias", f"{ref}.bias", raw)
+    model.load_state_dict(new, strict=False)
+    return missing
