@@ -7,23 +7,32 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises on failure:
 
-  1. build: compile `gcdlss_tpu_torch/csrc/*.cu` with nvcc (or reuse the
-     library built from the same sources) and print the build time;
+  1. build: compile `gcdlss_tpu_torch/csrc/*.cu` with nvcc, one process per
+     source, all started together (or reuse the library built from the same
+     sources), and print the build time;
   2. kernels: the k^3 neighbor map (K3), the gather-GEMM forward (K1) and its
-     backward (K2), on CUDA tensors at the main path's shapes (2 synthetic
+     backward (K2), on CUDA tensors at the Stage-1 path's shapes (2 synthetic
      80k-point scans at 0.05 m voxels, cap0 = 138,240), each held against its
      plain PyTorch version on the same bf16-rounded inputs and timed beside it
      with CUDA events;
-  3. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
+  3. Stage-2 kernels: the rank-based neighbor map K4 (`plan_kernel=1`) at
+     the Stage-2 path's shapes (2 labeled + 2 unlabeled scans, cap0 =
+     276,480), at L0 k5, L0 k3 and L1 k3, against its plain version, K3 and
+     the join path, bit for bit, and timed beside K3 and the plain version;
+     then K1/K2 at that plan's convs, as in phase 2;
+  4. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
      on the card (kernels) and on the CPU (plain versions) with the same
      weights, relative error <= REF_TOL;
-  4. slice: Stage-1 training as a user runs it: `ExpPretrain` with MinkUNet34
-     in bf16, 3 steps at batch 2 through the repository's
-     `SemanticKITTIDataset` and `PrefetchLoader`, then `validate` on 2 scans.
-     Every kernel's launch count is set to 0 just before and read just after:
-     each must have launched.
+  5. Stage-1 slice: `ExpPretrain` with MinkUNet34 in bf16, 3 steps at batch 2
+     through the repository's `SemanticKITTIDataset` and `PrefetchLoader`,
+     then `validate` on 2 scans;
+  6. Stage-2 slice: `ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive` at the
+     `bench.py` Stage-2 configuration (MinkUNet34, bf16, 2 + 2 scans), 3
+     steps with `plan_kernel=2` and 1 with `plan_kernel=1` through its own
+     loaders, then `validate` on 4 scans.
 
-Prints the card's name and power limit, a JSON line with every kernel
+Each slice sets every kernel's launch count to 0 just before it and reads it
+just after: each kernel of its path must have launched. Prints the card's name and power limit, a JSON line with every kernel
 comparison, and as its last line {"ok": true, "device": {...}}. Exits non-zero
 without that line when there is no CUDA device or a phase fails.
 """
@@ -42,8 +51,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 POINTS_PER_SCAN = 80_000
 VOXEL_SIZE = 0.05
-CAP0 = 138_240
+CAP0 = 138_240  # Stage 1: 2 scans
 BATCH = 2
+S2_CAP0 = 2 * CAP0  # Stage 2: 2 labeled scans in [0, CAP0), 2 unlabeled after
 OUT_TOL = 1e-2  # max|kernel - plain| <= OUT_TOL * max|plain| (outputs, dX)
 DW_TOL = 5e-3  # relative Frobenius error of dW
 REF_TOL = 2e-2  # relative Frobenius error of the small-input logits, card vs CPU
@@ -66,31 +76,33 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def voxel_batch(rng, device):
-    """Two synthetic scans quantized at VOXEL_SIZE, concatenated in (b, x, y, z)
-    order into CAP0 rows, as the host loader collates them."""
+def voxel_batch(rng, device, sides: int = 1):
+    """`sides` groups of BATCH synthetic scans quantized at VOXEL_SIZE, each
+    group concatenated in (b, x, y, z) order into CAP0 rows as the host
+    loader collates them, the groups one after another (Stage 2's labeled
+    and unlabeled buffers, batch indices continuing across them)."""
     import torch
 
     from bench import synth_scan_points
     from gcdlss_tpu.data.quantize_np import sparse_quantize_np
 
-    coords = np.zeros((CAP0, 4), np.int32)
-    off = 0
-    for b in range(BATCH):
-        vc, _, _ = sparse_quantize_np(synth_scan_points(rng, POINTS_PER_SCAN), VOXEL_SIZE)
-        take = min(len(vc), CAP0 - off)
-        coords[off:off + take, 0] = b
-        coords[off:off + take, 1:] = vc[:take]
-        off += take
-    valid = np.arange(CAP0) < off
+    coords = np.zeros((sides * CAP0, 4), np.int32)
+    valid = np.zeros(sides * CAP0, bool)
+    for side in range(sides):
+        off = side * CAP0
+        for b in range(side * BATCH, (side + 1) * BATCH):
+            vc, _, _ = sparse_quantize_np(synth_scan_points(rng, POINTS_PER_SCAN), VOXEL_SIZE)
+            take = min(len(vc), (side + 1) * CAP0 - off)
+            coords[off:off + take, 0] = b
+            coords[off:off + take, 1:] = vc[:take]
+            valid[off:off + take] = True
+            off += take
     return torch.as_tensor(coords, device=device), torch.as_tensor(valid, device=device)
 
 
 def kernel_phase(device) -> list:
     import torch
 
-    from gcdlss_tpu_torch.ops import conv as plain
-    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
     from gcdlss_tpu_torch.ops.plan import build_unet_plan, join_neighbor_map
     from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
     from gcdlss_tpu_torch.train.common import default_caps
@@ -124,8 +136,19 @@ def kernel_phase(device) -> list:
             log(line)
             if mism:
                 raise AssertionError(f"K3 L{lev} k{k1}: {mism} entries differ from the join path")
+    return rows + gemm_phase(plan, device, "stage1")
 
-    # K1/K2 at the main path's convs
+
+def gemm_phase(plan, device, tag: str) -> list:
+    """K1/K2 at the path's convs of `plan` (stem, L0 and L3 k3, a down and
+    an up pool book), each against its plain version on the same
+    bf16-rounded inputs, timed beside it."""
+    import torch
+
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+
+    rows = []
     lv, pools = plan.levels, plan.pools
     cases = [  # name, x rows, fwd book, adjoint book, ci, co
         ("stem L0 k5 1->32", lv[0].valid, plan.stem_nbr, plan.stem_nbr.flip(1), 1, 32),
@@ -135,6 +158,7 @@ def kernel_phase(device) -> list:
         ("up L4->L3 256->256", lv[4].valid, pools[3].upmap, pools[3].children, 256, 256),
     ]
     for name, xvalid, nbr, adj, ci, co in cases:
+        name = f"{tag} {name}"
         nbr, adj = nbr.contiguous(), adj.contiguous()
         k = nbr.shape[1]
         x = (torch.randn(xvalid.shape[0], ci, device=device)
@@ -176,6 +200,55 @@ def kernel_phase(device) -> list:
                          max_abs_err=max(dx_err, float((dw - rdw).abs().max())),
                          ms=ms, plain_ms=pms))
     return rows
+
+
+def stage2_kernel_phase(device) -> list:
+    """K4 at the Stage-2 combined plan: bit-exact against its plain version,
+    K3 and the join path; kernel-alone and ranks + kernel times. Then K1/K2
+    at the same plan's convs."""
+    import torch
+
+    from gcdlss_tpu_torch.ops.coords import SENTINEL_HI
+    from gcdlss_tpu_torch.ops.plan import _column_ranks, build_unet_plan, join_neighbor_map
+    from gcdlss_tpu_torch.ops.plan_kernel import (cube_candidates_map, cube_candidates_plain,
+                                                  cube_neighbor_map)
+    from gcdlss_tpu_torch.train.common import default_caps
+
+    caps = default_caps(S2_CAP0)
+    coords, valid = voxel_batch(np.random.default_rng(3), device, sides=2)
+    plan = build_unet_plan(coords, valid, caps, presorted=True, plan_kernel=1)
+    torch.cuda.synchronize()
+    log(f"K4 plan: caps {caps}, valid rows per level "
+        f"{[int(lv.valid.sum()) for lv in plan.levels]}")
+    rows = []
+    for lev, k1 in ((0, 5), (0, 3), (1, 3)):
+        kh, kl = plan.levels[lev].key_hi, plan.levels[lev].key_lo
+
+        def ranks():
+            return _column_ranks(kh != SENTINEL_HI, kh, kl, k1)
+
+        p, has = ranks()
+        got = cube_candidates_map(kh, kl, p, has, k1)
+        mism = {name: int((got != ref).sum()) for name, ref in (
+            ("plain", cube_candidates_plain(kh, kl, p, has, k1)),
+            ("K3", cube_neighbor_map(kh, kl, k1)),
+            ("join", join_neighbor_map(kh, kl, k1)))}
+        if lev == 0 and k1 == 5 and not torch.equal(got, plan.stem_nbr):
+            raise AssertionError("K4: plan stem map differs from a fresh launch")
+        ms = cuda_time_ms(lambda: cube_candidates_map(kh, kl, p, has, k1))
+        rms = cuda_time_ms(lambda: cube_candidates_map(kh, kl, *ranks(), k1))
+        k3ms = cuda_time_ms(lambda: cube_neighbor_map(kh, kl, k1))
+        pms = cuda_time_ms(lambda: cube_candidates_plain(kh, kl, p, has, k1))
+        log(f"K4 L{lev} k{k1}: cap {kh.shape[0]} mismatches {mism} | kernel {ms:.3f} ms, "
+            f"ranks + kernel {rms:.3f} ms, K3 {k3ms:.3f} ms, plain {pms:.3f} ms")
+        if any(mism.values()):
+            raise AssertionError(f"K4 L{lev} k{k1}: entries differ: {mism}")
+        rows.append(dict(name=f"K4 cube_cand L{lev} k{k1}", route="cuda",
+                         source="gcdlss_tpu_torch/csrc/cube_cand.cu",
+                         replaces="gcdlss_tpu/ops/plan_kernel.py:75",
+                         max_abs_err=float(mism["plain"]), ms=ms, plain_ms=pms,
+                         ranks_plus_kernel_ms=rms, k3_ms=k3ms))
+    return rows + gemm_phase(plan, device, "stage2")
 
 
 def reference_phase(device) -> None:
@@ -224,14 +297,15 @@ def reference_phase(device) -> None:
         raise AssertionError(f"reference: card logits differ from the CPU's by {rel} (relative)")
 
 
-def write_kitti_tree(root: Path, rng) -> None:
-    """SemanticKITTI layout: 6 train scans (seq 00), 2 valid scans (seq 08),
-    80k synthetic points each, labels drawn from the 19 classes' raw ids."""
+def write_kitti_tree(root: Path, rng, n_train: int, n_valid: int) -> None:
+    """SemanticKITTI layout: `n_train` train scans (seq 00), `n_valid` valid
+    scans (seq 08), 80k synthetic points each, labels drawn from the 19
+    classes' raw ids."""
     from bench import synth_scan_points
     from gcdlss_tpu.data.meta import KITTI_LEARNING_MAP_INV
 
     raw_ids = np.array([v for k, v in KITTI_LEARNING_MAP_INV.items() if k >= 0], np.int32)
-    for seq, n in (("00", 3 * BATCH), ("08", BATCH)):
+    for seq, n in (("00", n_train), ("08", n_valid)):
         vdir = root / "sequences" / seq / "velodyne"
         ldir = root / "sequences" / seq / "labels"
         vdir.mkdir(parents=True)
@@ -243,27 +317,37 @@ def write_kitti_tree(root: Path, rng) -> None:
             rng.choice(raw_ids, POINTS_PER_SCAN).astype(np.int32).tofile(ldir / f"{i:06d}.label")
 
 
-def slice_phase(device, gpu_name: str) -> dict:
+def label_space():
+    """SemanticKITTI split 1: (unknown raw labels, label mapping, its
+    inverse, the unknown slot)."""
+    from gcdlss_tpu.data import build_label_mapping, dataset_meta, split_table
+
+    unknown, _ = split_table("SemanticKITTI", 1)
+    mapping, inv, unk = build_label_mapping(
+        unknown, dataset_meta("SemanticKITTI")["learning_map_inv"].keys())
+    return unknown, mapping, inv, unk
+
+
+def stage1_phase(device, gpu_name: str) -> dict:
     import torch
 
-    from gcdlss_tpu.data import (PrefetchLoader, SemanticKITTIDataset, build_label_mapping,
-                                 dataset_meta, split_table)
+    from gcdlss_tpu.data import PrefetchLoader, SemanticKITTIDataset
     from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
     from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
-    from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
     from gcdlss_tpu_torch.train.common import default_caps
     from gcdlss_tpu_torch.train.pretrain import ExpPretrain, PretrainConfig
 
-    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map}
+    # Stage 1 builds its plans with K3 (the default), so K4 must read 0
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
     caps = default_caps(CAP0)
-    meta = dataset_meta("SemanticKITTI")
-    unknown, _ = split_table("SemanticKITTI", 1)
-    mapping, inv, unk = build_label_mapping(unknown, meta["learning_map_inv"].keys())
+    unknown, mapping, inv, unk = label_space()
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         root = Path(tmp)
-        write_kitti_tree(root, np.random.default_rng(2))
+        write_kitti_tree(root, np.random.default_rng(2), 3 * BATCH, BATCH)
         cfg = PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=unk,
                              voxel_caps=caps, arch="MinkUNet34", planes=DEFAULT_PLANES,
                              dtype="bfloat16", steps_per_epoch=3, epochs=50)
@@ -289,21 +373,115 @@ def slice_phase(device, gpu_name: str) -> dict:
 
     steps = module.step_log
     for i, s in enumerate(steps):
-        log(f"slice step {i}: loss {s['loss']:.6f} plan_overflow {s['plan_overflow']} "
+        log(f"stage1 step {i}: loss {s['loss']:.6f} plan_overflow {s['plan_overflow']} "
             f"time {s['seconds'] * 1e3:.1f} ms ({gpu_name})")
-    log(f"slice: mean loss {mean_loss:.6f}; validate loss {vm['loss']:.6f} mIoU {vm['mIoU']:.6f} "
-        f"confusion sum {int(vm['conf'].sum())}; peak memory {peak_gib:.3f} GiB; "
-        f"launches {launches}")
+    log(f"stage1: mean loss {mean_loss:.6f}; validate loss {vm['loss']:.6f} "
+        f"mIoU {vm['mIoU']:.6f} confusion sum {int(vm['conf'].sum())}; "
+        f"peak memory {peak_gib:.3f} GiB; launches {launches}")
     if len(steps) != 3:
-        raise AssertionError(f"slice: {len(steps)} train steps, expected 3")
+        raise AssertionError(f"stage1: {len(steps)} train steps, expected 3")
     if not all(np.isfinite(s["loss"]) for s in steps):
-        raise AssertionError("slice: non-finite loss")
+        raise AssertionError("stage1: non-finite loss")
     if any(s["plan_overflow"] != 0 for s in steps):
-        raise AssertionError("slice: the plan dropped voxels (plan_overflow > 0)")
+        raise AssertionError("stage1: the plan dropped voxels (plan_overflow > 0)")
     if not vm["conf"].sum() > 0:
-        raise AssertionError("slice: empty confusion matrix")
+        raise AssertionError("stage1: empty confusion matrix")
+    if not all(launches[k] > 0 for k in ("K1", "K2", "K3")):
+        raise AssertionError(f"stage1: a kernel was not launched: {launches}")
+    if launches["K4"] != 0:
+        raise AssertionError(f"stage1: K4 launched on the default K3 route: {launches}")
+    return launches
+
+
+S2_LOSS_TERMS = ("loss", "sup_seg", "mse", "lasermix", "calib", "thr_loss", "novel_unsup",
+                 "novel_sup", "ncc_unsup")
+
+
+def stage2_phase(device, gpu_name: str) -> dict:
+    """Stage-2 discovery as a user runs it, at the `bench.py` Stage-2
+    configuration: `train_epoch` over 3 step pairs with K3 maps, 1 with K4
+    maps, then `validate`."""
+    import dataclasses
+
+    import torch
+
+    from gcdlss_tpu.data import SemanticKITTIDataset
+    from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.discover import DiscoverConfig
+    from gcdlss_tpu_torch.train.modules import ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    caps = default_caps(S2_CAP0)
+    unknown, mapping, inv, unk = label_space()
+    cfg = DiscoverConfig(num_labeled_classes=17, num_unlabeled_classes=2, num_classes=19,
+                         unknown_label=unk, voxel_caps=caps, sup_voxel_cap=CAP0,
+                         mix_voxel_caps=caps, num_sup_scans=BATCH, point_cap=POINTS_PER_SCAN,
+                         voxel_size=VOXEL_SIZE, arch="MinkUNet34", planes=DEFAULT_PLANES,
+                         dtype="bfloat16", cand_cap=4096, queue_slots=20, queue_per_slot=1024,
+                         kmeans_iters=15, steps_per_epoch=1000, plan_kernel=2)
+    module = ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(cfg, mapping, inv, seed=0,
+                                                            device=device)
+    common = dict(voxel_size=VOXEL_SIZE, downsampling=POINTS_PER_SCAN, augment=True,
+                  label_mapping=mapping, unknown_labels=unknown)
+
+    def datasets(root: Path, n_lab: int):
+        """Labeled scans 0 .. n_lab - 1 of the tree and the unlabeled rest."""
+        split = np.arange(n_lab)
+        return (SemanticKITTIDataset(str(root), "train", split_indices=split, labeled=True,
+                                     resize_aug=True, seed=0, **common),
+                SemanticKITTIDataset(str(root), "train", split_indices=split, labeled=False,
+                                     seed=1, **common))
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tree_k3, tree_k4 = Path(tmp) / "k3", Path(tmp) / "k4"
+        rng = np.random.default_rng(4)
+        write_kitti_tree(tree_k3, rng, 6 * BATCH, 2 * BATCH)
+        write_kitti_tree(tree_k4, rng, 2 * BATCH, 0)
+        val_ds = SemanticKITTIDataset(str(tree_k3), "valid", voxel_size=VOXEL_SIZE,
+                                      label_mapping=mapping, unknown_labels=unknown)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        module.train_epoch(*module.make_loaders(*datasets(tree_k3, 3 * BATCH), num_workers=2))
+        module.cfg = dataclasses.replace(cfg, plan_kernel=1)
+        module.train_epoch(*module.make_loaders(*datasets(tree_k4, BATCH), num_workers=2))
+        vm = module.validate(val_ds, num_workers=2)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    steps = module.step_log
+    for i, s in enumerate(steps):
+        terms = " ".join(f"{k} {s[k]:.6f}" for k in S2_LOSS_TERMS)
+        log(f"stage2 step {i} (plan_kernel {2 if i < 3 else 1}): {terms} | tau {s['tau']:.6f} "
+            f"n_cand {s['n_cand']:.0f} n_rel {s['n_rel']:.0f} has_novel {s['has_novel']:.0f} "
+            f"plan_overflow {s['plan_overflow']:.0f} | time {s['seconds'] * 1e3:.1f} ms "
+            f"({gpu_name})")
+    log(f"stage2: validate mIoU {vm['mIoU']:.6f} old {vm['mIoU_old']:.6f} "
+        f"new {vm['mIoU_new']:.6f} confusion sum {int(vm['conf'].sum())}; "
+        f"peak memory {peak_gib:.3f} GiB ({gpu_name}); launches {launches}")
+    if len(steps) != 4:
+        raise AssertionError(f"stage2: {len(steps)} train steps, expected 4")
+    bad = [(i, k) for i, s in enumerate(steps) for k in S2_LOSS_TERMS + ("tau",)
+           if not np.isfinite(s[k])]
+    if bad:
+        raise AssertionError(f"stage2: non-finite (step, term): {bad}")
+    if any(s["plan_overflow"] != 0 for s in steps):
+        raise AssertionError("stage2: a plan dropped voxels (plan_overflow > 0)")
+    if not any(s["has_novel"] == 1 for s in steps):
+        raise AssertionError("stage2: the novel branch never fired (has_novel 0 in every step)")
+    if not vm["conf"].sum() > 0:
+        raise AssertionError("stage2: empty confusion matrix")
     if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"slice: a kernel was not launched: {launches}")
+        raise AssertionError(f"stage2: a kernel was not launched: {launches}")
     return launches
 
 
@@ -330,13 +508,18 @@ def main() -> int:
     _build.library()
     log(f"build: {lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
 
-    rows = kernel_phase(device)
+    rows = kernel_phase(device) + stage2_kernel_phase(device)
     reference_phase(device)
-    launches = slice_phase(device, gpu_name)
+    launches_s1 = stage1_phase(device, gpu_name)
+    launches_s2 = stage2_phase(device, gpu_name)
+    # `launches` counts the Stage-2 path (the system's main path, which runs
+    # all four kernels); `launches_stage1` the Stage-1 path
     for r in rows:
-        r["launches"] = launches[r["name"][:2]]
+        r["launches"] = launches_s2[r["name"][:2]]
+        r["launches_stage1"] = launches_s1[r["name"][:2]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    extra = ("launches_stage1", "ranks_plus_kernel_ms", "k3_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
                                              "count": torch.cuda.device_count()}}))
     return 0

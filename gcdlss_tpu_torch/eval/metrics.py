@@ -1,7 +1,8 @@
-"""Evaluation: confusion matrix, IoU and the Stage-1 strict-Hungarian protocol.
+"""Evaluation: confusion matrix, IoU, and the Stage-1 and Stage-2 protocols.
 
-Port of `gcdlss_tpu/eval/metrics.py` (Stage-1 part): `confusion_update` runs
-on tensors on the device, the rest on small numpy matrices on the host.
+Port of `gcdlss_tpu/eval/metrics.py` (the Stage-1 and Stage-2 protocols):
+`confusion_update` runs on tensors on the device, the rest on small numpy
+matrices on the host.
 """
 
 from __future__ import annotations
@@ -12,13 +13,18 @@ import torch
 
 def confusion_update(preds: torch.Tensor, labels: torch.Tensor, num_classes: int,
                      valid: torch.Tensor | None = None) -> torch.Tensor:
-    """[D, D] int64 counts with conf[pred, label] += 1 over valid rows."""
-    mask = (labels >= 0) & (labels < num_classes) & (preds >= 0) & (preds < num_classes)
+    """[D, D] int64 counts with conf[pred, label] += 1 over valid rows.
+
+    Masked rows count into a spare bucket that is dropped, so the shapes are
+    fixed and the device never waits for the host."""
+    d = num_classes
+    mask = (labels >= 0) & (labels < d) & (preds >= 0) & (preds < d)
     if valid is not None:
         mask = mask & valid
-    idx = (preds.long() * num_classes + labels.long())[mask]
-    return torch.bincount(idx, minlength=num_classes * num_classes).reshape(
-        num_classes, num_classes)
+    idx = torch.where(mask, preds.long() * d + labels.long(), d * d)
+    flat = torch.zeros(d * d + 1, dtype=torch.int64, device=idx.device)
+    flat.scatter_add_(0, idx, torch.ones_like(idx))
+    return flat[:-1].reshape(d, d)
 
 
 def get_iou(conf_matrix: np.ndarray, include=None) -> np.ndarray:
@@ -44,3 +50,18 @@ def strict_hungarian_iou(conf: np.ndarray, num_classes: int):
     permuted = conf[:, ind[:, 1]]
     include = np.argsort(ind[:, 1])[:num_classes]
     return get_iou(permuted, include), include
+
+
+def discovery_iou(conf: np.ndarray, known_ids, unknown_ids, num_classes: int):
+    """Stage-2 protocol: Hungarian only over the unknown x unknown submatrix,
+    then the matching column permutation. Returns (iou [num_classes], mIoU,
+    mIoU over the known classes, mIoU over the unknown ones)."""
+    conf = conf.copy()
+    unknown_ids = np.asarray(list(unknown_ids))
+    known_ids = np.asarray(list(known_ids))
+    _, col_ind = hungarian(conf[np.ix_(unknown_ids, unknown_ids)])
+    conf[:, unknown_ids] = conf[:, unknown_ids[col_ind]]
+    include = np.arange(num_classes)
+    include[unknown_ids] = unknown_ids[np.argsort(col_ind)]
+    iou = get_iou(conf, include)
+    return iou, float(iou.mean()), float(iou[known_ids].mean()), float(iou[unknown_ids].mean())

@@ -1,8 +1,18 @@
-"""Training losses (PyTorch port of `gcdlss_tpu/losses.py`; Stage-1 part)."""
+"""Training losses (PyTorch port of `gcdlss_tpu/losses.py`).
+
+  * masked cross entropy (torch `CrossEntropyLoss(ignore_index=-1)`);
+  * calibration loss: the GT logit suppressed to `NEG_INF`, target the
+    unknown slot;
+  * mean-teacher MSE consistency on softmax probabilities;
+  * the learnable-threshold hinge pair of the NCC head.
+"""
 
 from __future__ import annotations
 
 import torch
+
+# finite on purpose: an infinite logit turns the CE gradient into NaN
+NEG_INF = -1e9
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -16,3 +26,47 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = -logp.gather(1, safe[:, None])[:, 0]
     m = mask.float()
     return (nll * m).sum() / m.sum().clamp(min=1.0)
+
+
+def calibration_loss(logits: torch.Tensor, labels: torch.Tensor, unknown_label: int,
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
+    """CE towards the unknown slot with the GT class logit masked out; rows
+    whose GT is the unknown slot, or negative, are ignored."""
+    c = logits.shape[1]
+    safe = labels.clamp(0, c - 1).long()
+    onehot = torch.nn.functional.one_hot(safe, c).bool()
+    masked = torch.where(onehot, torch.full_like(logits, NEG_INF), logits)
+    tgt = torch.where(labels == unknown_label, -1, unknown_label)
+    tgt = torch.where(labels < 0, -1, tgt)
+    return cross_entropy(masked, tgt, valid)
+
+
+def mse_prob_loss(probs_a: torch.Tensor, probs_b: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Squared error of probability rows, averaged over valid rows and all
+    classes (torch `F.mse_loss`, reduction 'mean')."""
+    d = (probs_a - probs_b).square()
+    if valid is None:
+        return d.mean()
+    m = valid[:, None].to(d.dtype)
+    return (d * m).sum() / (m.sum() * d.shape[1]).clamp(min=1.0)
+
+
+def adaptive_threshold_loss(ncc_logits: torch.Tensor, labels: torch.Tensor,
+                            unknown_label: int, tau: torch.Tensor,
+                            valid: torch.Tensor | None = None) -> torch.Tensor:
+    """hinge(known ncc - tau) + hinge(tau - unknown ncc), each the mean over
+    its set and 0 where the set is empty."""
+    base = labels >= 0
+    if valid is not None:
+        base = base & valid
+    known = base & (labels != unknown_label)
+    unknown = base & (labels == unknown_label)
+
+    def masked_mean(x, m):
+        mm = m.float()
+        s = mm.sum()
+        return torch.where(s > 0, (x * mm).sum() / s.clamp(min=1.0), 0.0)
+
+    return (masked_mean(torch.relu(ncc_logits - tau), known)
+            + masked_mean(torch.relu(tau - ncc_logits), unknown))

@@ -7,7 +7,8 @@ block stacks per level, and the linear `final` head. Submodules carry the
 reference checkpoint's names (`encoder.conv0p1s1`, `encoder.conv1p1s2`,
 `encoder.block1.0.conv1`, `encoder.block1.0.downsample.0`, `encoder.final`),
 so its state dicts map on key by key (`utils.weights`). Kernel offsets keep
-this repository's order (z fastest).
+this repository's order (z fastest). `MinkUNetSeg` is the Stage-1 model,
+`MinkUNetRC` the Stage-2 one (`gcdlss_tpu/models/minkunet.py:312-395`).
 
 Precision (docs/ARCHITECTURE.md §3): activations in `dtype` (bf16 on the
 card), parameters, batch-norm statistics, the head and the loss in f32.
@@ -149,3 +150,47 @@ class MinkUNetSeg(nn.Module):
         h = self.encoder(plan, feats).float()
         logits = self.encoder.final(h)
         return {"logits": mask_rows(logits, plan.levels[0].valid), "feats": h}
+
+
+class MinkUNetRC(nn.Module):
+    """Backbone + `final` (K known), `final2` (NCC, `ncc_heads`) and `final3`
+    (Ku novel) linear heads: the Stage-2 teacher/student model.
+
+    Returns {'feats', 'logits_known', 'logits_ncc', 'logits_novel'}; the
+    assemblers below build the reference's logit layouts. The heads sit
+    inside the encoder (`encoder.final`, `encoder.final2`, `encoder.final3`),
+    where the reference checkpoint keeps them."""
+
+    def __init__(self, num_labeled: int, num_novel: int, ncc_heads: int = 3,
+                 arch: str = "MinkUNet34", planes: tuple = DEFAULT_PLANES,
+                 in_channels: int = 1, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.encoder = MinkUNetBackbone(arch, planes, in_channels, dtype=dtype,
+                                        generator=generator)
+        c = self.encoder.out_channels
+        self.encoder.final = Linear(c, num_labeled, generator=generator)
+        self.encoder.final2 = Linear(c, ncc_heads, generator=generator)
+        self.encoder.final3 = Linear(c, num_novel, generator=generator)
+
+    def forward(self, plan, feats):
+        h = self.encoder(plan, feats).float()
+        valid = plan.levels[0].valid
+        return {
+            "feats": h,
+            "logits_known": mask_rows(self.encoder.final(h), valid),
+            "logits_ncc": mask_rows(self.encoder.final2(h), valid),
+            "logits_novel": mask_rows(self.encoder.final3(h), valid),
+        }
+
+
+def assemble_dummy_logits(out: dict) -> torch.Tensor:
+    """[final | max(final2)]: the reference's `forward_dummy`."""
+    ncc_max = out["logits_ncc"].max(dim=-1, keepdim=True).values
+    return torch.cat([out["logits_known"], ncc_max], dim=-1)
+
+
+def assemble_novel_logits(out: dict) -> torch.Tensor:
+    """[final | final3 | max(final2)]: the reference's `forward_novel`."""
+    ncc_max = out["logits_ncc"].max(dim=-1, keepdim=True).values
+    return torch.cat([out["logits_known"], out["logits_novel"], ncc_max], dim=-1)

@@ -1,8 +1,9 @@
 """Build the CUDA kernels of `gcdlss_tpu_torch/csrc/` and load them with ctypes.
 
-All `csrc/*.cu` files compile in one `nvcc` call into one shared library with a
-plain C interface, `build/kernels/libgcdlss_kernels-<hash>.so` under the
-repository root. The hash covers the sources and the flags, so an edited
+Each `csrc/*.cu` file compiles in its own `nvcc` process, all started
+together, and one more `nvcc` call links the objects into one shared library
+with a plain C interface, `build/kernels/libgcdlss_kernels-<hash>.so` under
+the repository root. The hash covers the sources and the flags, so an edited
 source, or a deleted library, is rebuilt at the next first use; nothing falls
 back when the build fails. A C entry takes its pointers and the CUDA stream as
 `c_void_p` and returns `cudaGetLastError()`; `check` turns a non-zero code
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argument types (pointers and the stream as c_void_p)
@@ -30,6 +31,7 @@ SIGNATURES = {
     "gcd_gather_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gcd_gather_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gcd_cube_map": (_P, _P, _I, _I, _P),
+    "gcd_cube_cand": (_P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -59,12 +61,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name} failed ({proc.returncode}):\n{err}")
+    if not errors:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            errors.append(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if errors:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, out)
     return out
 

@@ -88,6 +88,26 @@ def sorted_unique(hi: torch.Tensor, lo: torch.Tensor, capacity: int):
     return (uh, ul), rep, inverse, count
 
 
+def sorted_unique_nodup(hi: torch.Tensor, lo: torch.Tensor, capacity: int):
+    """`sorted_unique` for keys promised duplicate-free, with capacity == n
+    (the voxel-level LaserMix re-batch): the unique keys are the sorted keys,
+    `rep` is the stable sort order and `inverse` scatters the positions back.
+    A broken promise leaves both copies of a key in two rows. Same returns as
+    `sorted_unique`."""
+    n = hi.shape[0]
+    if capacity != n:
+        raise ValueError(f"sorted_unique_nodup needs capacity == n, got {capacity} != {n}")
+    sk, order = torch.sort(pack_keys(hi, lo), stable=True)
+    sh = (sk >> 32).to(torch.int32)
+    sl = (sk & 0xFFFFFFFF).to(torch.int32)
+    valid_sorted = sh != SENTINEL_HI
+    pos = torch.arange(n, dtype=torch.int32, device=hi.device)
+    rep = torch.where(valid_sorted, order, n).to(torch.int32)
+    inverse = torch.empty(n, dtype=torch.int32, device=hi.device)
+    inverse[order] = torch.where(valid_sorted, pos, capacity).to(torch.int32)
+    return (sh, sl), rep, inverse, valid_sorted.sum().to(torch.int32)
+
+
 def sorted_unique_presorted(hi: torch.Tensor, lo: torch.Tensor, capacity: int):
     """`sorted_unique` for inputs whose valid rows are already key-sorted
     (host quantize output and its batch concatenation): a validity compaction

@@ -10,9 +10,18 @@ them. Topology (MinkUNet, reference `models/minkunet.py:59-132`):
   * four k=2 s=2 pool edges, each with `parent`/`dcode` and the explicit
     `children` (down) and `upmap` (up) books the pool convolutions gather by.
 
-k^3 maps go through `plan_kernel.cube_neighbor_map`: the CUDA kernel for a
-tensor on the card, `join_neighbor_map` below for a tensor on the CPU. The
-kernel has no window, so unlike the TPU path there is no overflow fallback.
+k^3 maps go through one of two kernels, chosen by the `plan_kernel` argument
+(the JAX package's `GCDLSS_PLAN_KERNEL` modes 2 and 1):
+
+  * 2 (default): `plan_kernel.cube_neighbor_map` (K3), a binary search per
+    (row, offset); its plain version is `join_neighbor_map` below;
+  * 1: `_column_ranks` (one insertion rank per row and non-center (dx, dy)
+    column) feeding `plan_kernel.cube_candidates_map` (K4), which reads the
+    <= k consecutive candidate rows at each rank.
+
+Each wrapper takes its plain version for a tensor on the CPU and launches
+its CUDA kernel for a tensor on the card. Neither kernel has a window, so
+unlike the TPU path there is no overflow fallback and no far-pair repair.
 """
 
 from __future__ import annotations
@@ -23,10 +32,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .coords import (SENTINEL_HI, decode_keys, encode_coords, sorted_unique,
-                     sorted_unique_presorted)
-from .join import sorted_join
-from .plan_kernel import cube_neighbor_map
+from .coords import (FIELD, SENTINEL_HI, SENTINEL_LO, decode_keys, encode_coords,
+                     sorted_unique, sorted_unique_nodup, sorted_unique_presorted)
+from .join import sorted_join, sorted_rank_match
+from .plan_kernel import cube_candidates_map, cube_neighbor_map
+
+PLAN_KERNELS = (1, 2)  # K4 (rank + candidates), K3 (binary search)
 
 
 def _offsets(k: int) -> np.ndarray:
@@ -111,6 +122,38 @@ def join_neighbor_map(key_hi: torch.Tensor, key_lo: torch.Tensor, k1: int) -> to
     return torch.cat([half_nbr, center[:, None], _transpose_half(half_nbr)], dim=1)
 
 
+def _column_ranks(valid, key_hi, key_lo, k1: int):
+    """(p, has) [k1^2 - 1, cap] for every non-center (dx, dy) column in
+    product order: the insertion rank of each row's query key and whether its
+    candidate run is non-empty (`join.sorted_rank_match`).
+
+    Query keys are built arithmetically, hi + dx and lo + dy * FIELD - r (the
+    window's lowest z), without `encode_coords`' clip, as the JAX package
+    builds them; invalid rows query the sentinel. The column offsets are
+    made on the device: a host copy would wait for the stream."""
+    r = k1 // 2
+    col = torch.arange(k1 * k1 - 1, dtype=torch.int32, device=key_hi.device)
+    col = col + (col >= k1 * k1 // 2).to(torch.int32)  # skip the center column
+    dhi = (col // k1 - r)[:, None]
+    dlo = ((col % k1 - r) * FIELD - r)[:, None]
+    qh = torch.where(valid[None, :], key_hi[None, :] + dhi, SENTINEL_HI)
+    ql = torch.where(valid[None, :], key_lo[None, :] + dlo, SENTINEL_LO)
+    p, has = sorted_rank_match(key_hi, key_lo, qh.reshape(-1), ql.reshape(-1), 2 * r)
+    return p.reshape(qh.shape), has.reshape(qh.shape)
+
+
+def neighbor_map(key_hi: torch.Tensor, key_lo: torch.Tensor, k1: int,
+                 plan_kernel: int = 2) -> torch.Tensor:
+    """[cap, k1^3] neighbor map of one level through K3 (`plan_kernel=2`) or
+    K4 (`plan_kernel=1`)."""
+    if plan_kernel == 2:
+        return cube_neighbor_map(key_hi, key_lo, k1)
+    if plan_kernel == 1:
+        p, has = _column_ranks(key_hi != SENTINEL_HI, key_hi, key_lo, k1)
+        return cube_candidates_map(key_hi, key_lo, p, has, k1)
+    raise ValueError(f"plan_kernel must be one of {PLAN_KERNELS}, got {plan_kernel!r}")
+
+
 def plan_capacity_overflow(plan: UNetPlan) -> torch.Tensor:
     """Total unique voxels dropped by the per-level capacities (int32)."""
     tot = torch.zeros((), dtype=torch.int32, device=plan.rep.device)
@@ -121,7 +164,8 @@ def plan_capacity_overflow(plan: UNetPlan) -> torch.Tensor:
 
 
 def build_unet_plan(coords: torch.Tensor, valid: torch.Tensor, caps: tuple,
-                    presorted: bool = False) -> UNetPlan:
+                    presorted: bool = False, assume_unique: bool = False,
+                    plan_kernel: int = 2) -> UNetPlan:
     """Build the full per-batch plan from stride-1 voxel coords.
 
     Args:
@@ -132,9 +176,18 @@ def build_unet_plan(coords: torch.Tensor, valid: torch.Tensor, caps: tuple,
       presorted: the valid rows of `coords` are already (b, x, y, z)-sorted
         (true for the host quantizer's output and its batch concatenation):
         skips the level-0 sort. Pool levels always sort.
+      assume_unique: the caller promises no duplicate (b, x, y, z) rows (the
+        voxel-level LaserMix re-batch); with caps[0] == n_in the level-0
+        dedup bookkeeping is skipped (`coords.sorted_unique_nodup`).
+      plan_kernel: 2 builds the k^3 maps with K3, 1 with K4 (`neighbor_map`).
     """
     hi, lo = encode_coords(coords, valid)
-    uniq0 = sorted_unique_presorted if presorted else sorted_unique
+    if presorted:
+        uniq0 = sorted_unique_presorted
+    elif assume_unique and caps[0] == coords.shape[0]:
+        uniq0 = sorted_unique_nodup
+    else:
+        uniq0 = sorted_unique
     (kh, kl), rep, inverse, count = uniq0(hi, lo, caps[0])
     dev = coords.device
 
@@ -144,10 +197,10 @@ def build_unet_plan(coords: torch.Tensor, valid: torch.Tensor, caps: tuple,
         lvalid = kh != SENTINEL_HI
         lcoords = torch.where(lvalid[:, None], decode_keys(kh, kl), 0)
         if lev == 0:
-            stem_nbr = cube_neighbor_map(kh, kl, 5)
+            stem_nbr = neighbor_map(kh, kl, 5, plan_kernel)
             nbr3 = stem_nbr[:, torch.as_tensor(K3_IN_K5, device=dev)]
         else:
-            nbr3 = cube_neighbor_map(kh, kl, 3)
+            nbr3 = neighbor_map(kh, kl, 3, plan_kernel)
         levels.append(LevelPlan(lcoords, lvalid, count, nbr3, kh, kl))
         if lev + 1 == len(caps):
             break

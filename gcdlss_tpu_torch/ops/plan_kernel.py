@@ -1,9 +1,11 @@
-"""k^3 neighbor-map kernel wrapper (CUDA, `csrc/cube_map.cu`).
+"""k^3 neighbor-map kernel wrappers (CUDA, `csrc/cube_map.cu`).
 
-Replaces the TPU kernel `_kernel_v2` of `gcdlss_tpu/ops/plan_kernel.py`. Its
-plain version is the join path, `plan.join_neighbor_map`, which it equals bit
-for bit. The wrapper takes the plain version only for tensors on the CPU; for
-a CUDA tensor it launches the kernel or raises.
+K3 `cube_neighbor_map` replaces the TPU kernel `_kernel_v2` and K4
+`cube_candidates_map` replaces the TPU kernel `_kernel` (v1), both of
+`gcdlss_tpu/ops/plan_kernel.py`. K3's plain version is the join path,
+`plan.join_neighbor_map`, which it equals bit for bit; K4's is
+`cube_candidates_plain` below. Each wrapper takes its plain version only for
+tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .coords import pack_keys
+from .coords import FIELD, SENTINEL_HI, pack_keys
 
 
 def cube_neighbor_map(key_hi: torch.Tensor, key_lo: torch.Tensor, k1: int) -> torch.Tensor:
@@ -40,3 +42,73 @@ def cube_neighbor_map(key_hi: torch.Tensor, key_lo: torch.Tensor, k1: int) -> to
 
 
 cube_neighbor_map.launches = 0
+
+
+def cube_candidates_plain(key_hi: torch.Tensor, key_lo: torch.Tensor, p: torch.Tensor,
+                          has: torch.Tensor, k1: int) -> torch.Tensor:
+    """Plain version of K4: the same candidate resolution as gathers and
+    compares. Column c = (dx + r) * k1 + (dy + r) queries (hi + dx,
+    lo + dy * FIELD - r) and reads table rows base + m, m < k1, inside
+    [0, cap): base is p for the non-center columns (`p`/`has` rows in column
+    order, center skipped) and i - r, clipped, for the center. A row whose hi
+    equals the query's and whose lo - q_lo is in [0, 2r] fills slot
+    c * k1 + (lo - q_lo). Invalid rows and queries with has = 0 stay -1."""
+    cap = key_hi.shape[0]
+    r = k1 // 2
+    ncols = k1 * k1
+    cc = ncols // 2
+    dev = key_hi.device
+    cols = torch.arange(ncols, dtype=torch.int32, device=dev)
+    dhi = (cols // k1 - r)[:, None]
+    dlo = ((cols % k1 - r) * FIELD - r)[:, None]
+    rows = torch.arange(cap, dtype=torch.int32, device=dev)
+    valid = key_hi != SENTINEL_HI
+    base = torch.cat([p[:cc], (rows - r).clamp(0, cap - 1)[None], p[cc:]])
+    live = torch.cat([has[:cc], valid[None], has[cc:]]) & valid[None]
+    qh = key_hi[None] + dhi
+    ql = key_lo[None] + dlo
+    out = torch.full((cap, ncols, k1), -1, dtype=torch.int32, device=dev)
+    for m in range(k1):
+        crow = base + m
+        safe = crow.clamp(max=cap - 1).long()
+        delta = key_lo[safe] - ql
+        ok = live & (crow < cap) & (key_hi[safe] == qh) & (delta >= 0) & (delta <= 2 * r)
+        c_idx, i_idx = ok.nonzero(as_tuple=True)
+        out[i_idx, c_idx, delta[ok].long()] = crow[ok]
+    return out.reshape(cap, ncols * k1)
+
+
+def cube_candidates_map(key_hi: torch.Tensor, key_lo: torch.Tensor, p: torch.Tensor,
+                        has: torch.Tensor, k1: int) -> torch.Tensor:
+    """K4: [cap, k1^3] int32 neighbor rows (-1 absent) from the insertion
+    ranks `p` int32 [k1^2 - 1, cap] and match bits `has` bool [k1^2 - 1, cap]
+    of `plan._column_ranks`; see `cube_candidates_plain` for the definition."""
+    if key_hi.device.type == "cpu":
+        return cube_candidates_plain(key_hi, key_lo, p, has, k1)
+    if key_hi.device.type != "cuda":
+        raise ValueError(f"cube_candidates_map: unsupported device {key_hi.device}")
+    if k1 not in (3, 5):
+        raise ValueError(f"cube_candidates_map: k1 must be 3 or 5, got {k1}")
+    cap = key_hi.shape[0]
+    for name, t, dtype, shape in (("key_hi", key_hi, torch.int32, (cap,)),
+                                  ("key_lo", key_lo, torch.int32, (cap,)),
+                                  ("p", p, torch.int32, (k1 * k1 - 1, cap)),
+                                  ("has", has, torch.bool, (k1 * k1 - 1, cap))):
+        if t.device != key_hi.device:
+            raise ValueError(f"cube_candidates_map: {name} is on {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"cube_candidates_map: {name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"cube_candidates_map: {name} must be {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"cube_candidates_map: {name} must be contiguous")
+    nbr = torch.empty((cap, k1 ** 3), dtype=torch.int32, device=key_hi.device)
+    stream = torch.cuda.current_stream(key_hi.device).cuda_stream
+    _build.check(_build.library().gcd_cube_cand(
+        key_hi.data_ptr(), key_lo.data_ptr(), p.data_ptr(), has.data_ptr(), nbr.data_ptr(),
+        cap, k1, stream), "cube_candidates_map")
+    cube_candidates_map.launches += 1
+    return nbr
+
+
+cube_candidates_map.launches = 0

@@ -67,12 +67,13 @@ def point_batch_to_device(pb, device) -> dict:
     }
 
 
-def plan_and_gather(batch: dict, caps: tuple):
+def plan_and_gather(batch: dict, caps: tuple, plan_kernel: int = 2):
     """Build the UNet plan and permute input rows into plan (sorted) order.
 
     Returns (plan, feats0, labels0, mapped0), where row i refers to the
     plan's level-0 row i."""
-    plan = build_unet_plan(batch["coords"], batch["valid"], caps, presorted=True)
+    plan = build_unet_plan(batch["coords"], batch["valid"], caps, presorted=True,
+                           plan_kernel=plan_kernel)
     n = batch["coords"].shape[0]
     ok = plan.rep < n
     safe = torch.where(ok, plan.rep, 0).long()

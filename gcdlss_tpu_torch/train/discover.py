@@ -1,0 +1,391 @@
+"""Stage 2: mean-teacher generalized class discovery with LaserMix and the
+learnable NCC threshold (PyTorch port of `gcdlss_tpu/train/discover.py`, the
+reference's `ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive`).
+
+One step: the combined sup + unsup plan, a teacher forward (train-mode batch
+norm, no gradient), the voxel-level LaserMix plan built from the teacher's
+pseudo labels, NCC candidate mining against the learnable logit threshold
+tau, cosine k-means over the candidates and the feature queue, a per-step
+Hungarian alignment, the student's forwards on both plans with the 8-term
+objective, one backward, SGD on the student and tau, the EMA teacher update
+and the queue push. Everything stays on the device: shapes are fixed and
+the novel branch is gated by a mask, never by a host branch.
+
+Ported is the default variant only: threshold_mode "adaptive_logit",
+assigner "kmeans_hungarian", mix_mode "lasermix", mix_plan_mode "voxel",
+use_lion False, linear heads, MinkUNet backbones. The k^3 neighbor maps
+go through K3 (`plan_kernel=2`) or K4 (`plan_kernel=1`).
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..algo.hungarian import hungarian_small
+from ..algo.kmeans import cosine_kmeans
+from ..algo.queue import FeatureQueue, queue_flatten, queue_init, queue_push
+from ..eval.metrics import confusion_update
+from ..losses import adaptive_threshold_loss, calibration_loss, cross_entropy, mse_prob_loss
+from ..models.minkunet import (DEFAULT_PLANES, MinkUNetRC, assemble_dummy_logits,
+                               assemble_novel_logits)
+from ..ops.plan import PLAN_KERNELS, build_unet_plan, plan_capacity_overflow
+from .common import make_sgd, plan_and_gather
+from .lasermix import NUM_AREAS_CHOICES, lasermix_voxel_groups
+from .schedule import make_lr_schedule
+
+_FAMILY = "ROADMAP Queue 1, the discovery family"
+# field -> (the ported value, the ROADMAP item that will port the others)
+_PORTED = {
+    "threshold_mode": ("adaptive_logit", _FAMILY),
+    "assigner": ("kmeans_hungarian", _FAMILY),
+    "mix_mode": ("lasermix", _FAMILY),
+    "mix_plan_mode": ("voxel", "ROADMAP Queue 1, the point-mode LaserMix oracle"),
+    "use_lion": (False, _FAMILY),
+    "remat": (False, "ROADMAP Queue 1, models: remat"),
+}
+
+
+@dataclass(frozen=True)
+class DiscoverConfig:
+    num_labeled_classes: int
+    num_unlabeled_classes: int
+    num_classes: int
+    unknown_label: int
+    voxel_caps: tuple  # combined sup+unsup plan capacities (5 levels)
+    sup_voxel_cap: int  # sup rows occupy [0, sup_voxel_cap) of the combined input
+    mix_voxel_caps: tuple  # capacities of the LaserMix-mixed plan
+    num_sup_scans: int  # scans per batch on each side
+    point_cap: int  # per-scan point capacity
+    voxel_size: float = 0.05
+    arch: str = "MinkUNet34"
+    planes: tuple = DEFAULT_PLANES
+    in_channels: int = 1
+    dtype: str = "float32"  # activation dtype: "bfloat16" on the card
+    remat: bool = False
+    feat_dim: int = 96
+    ncc_heads: int = 3
+    alpha: int = 5
+    kmeans_iters: int = 15
+    cand_cap: int = 4096
+    queue_slots: int = 20
+    queue_per_slot: int = 1024
+    ema_momentum: float = 0.01
+    pseudo_thr: float = 0.9
+    threshold_mode: str = "adaptive_logit"
+    fixed_prob_thld: float = 0.2
+    tau_init: float = 0.0
+    threshold_offset: float = 0.0
+    oracle_logit_thld: float = 0.2052
+    msp_threshold: float = 0.0883
+    assigner: str = "kmeans_hungarian"
+    use_lion: bool = False
+    lion_reward: float = 4.5
+    lion_ood_reg: float = 0.1
+    lion_coeff: float = 0.1
+    calib_coeff: float = 0.05
+    mse_coeff: float = 200.0
+    lasermix_coeff: float = 0.1
+    mix_mode: str = "lasermix"
+    mix_plan_mode: str = "voxel"
+    mixing_ratio_feat: float = 0.1
+    novel_coeff: float = 0.1
+    sup_novel_coeff: float = 1.0
+    ncc_coeff: float = 0.1
+    threshold_loss_weight: float = 0.2
+    lr: float = 1e-2
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    use_scheduler: bool = True
+    warmup_epochs: int = 4
+    min_lr: float = 1e-5
+    epochs: int = 50
+    steps_per_epoch: int = 1000
+    plan_kernel: int = 2  # k^3 maps: 2 = K3 (binary search), 1 = K4 (ranks)
+
+
+def check_config(cfg: DiscoverConfig) -> None:
+    """Raise for a variant the port does not run yet, naming its ROADMAP item."""
+    for field, (ported, item) in _PORTED.items():
+        if getattr(cfg, field) != ported:
+            raise NotImplementedError(
+                f"DiscoverConfig.{field}={getattr(cfg, field)!r}: only {ported!r} is ported "
+                f"({item})")
+    if cfg.plan_kernel not in PLAN_KERNELS:
+        raise ValueError(f"plan_kernel must be one of {PLAN_KERNELS}, got {cfg.plan_kernel!r}")
+
+
+@dataclass
+class DiscoverState:
+    student: MinkUNetRC
+    teacher: MinkUNetRC  # EMA of the student's parameters; its own BN statistics
+    tau: nn.Parameter  # learnable NCC logit threshold, trained with the student
+    optimizer: torch.optim.Optimizer  # SGD over the student's parameters and tau
+    queue: FeatureQueue
+    generator: torch.Generator  # LaserMix areas and k-means initial rows
+    step: int = 0
+
+
+def make_model(cfg: DiscoverConfig, generator: torch.Generator | None = None) -> MinkUNetRC:
+    check_config(cfg)
+    return MinkUNetRC(cfg.num_labeled_classes, cfg.num_unlabeled_classes, cfg.ncc_heads,
+                      arch=cfg.arch, planes=cfg.planes, in_channels=cfg.in_channels,
+                      dtype=getattr(torch, cfg.dtype), generator=generator)
+
+
+def create_discover_state(seed: int, cfg: DiscoverConfig, pretrained: dict | None = None,
+                          device="cpu") -> DiscoverState:
+    """Student with weights drawn from `seed` (on the CPU, then moved), its
+    copy as the teacher, tau, SGD, an empty queue and the step's generator.
+
+    `pretrained`: a Stage-1 `MinkUNetSeg` state dict; its backbone and
+    `final` parameters warm-start the student (`utils.weights.warm_start`)."""
+    from ..utils.weights import warm_start
+
+    student = make_model(cfg, torch.Generator().manual_seed(seed))
+    if pretrained is not None:
+        warm_start(student, pretrained)
+    student = student.to(device)
+    teacher = copy.deepcopy(student)
+    teacher.requires_grad_(False)
+    tau = nn.Parameter(torch.tensor(cfg.tau_init, dtype=torch.float32, device=device))
+    return DiscoverState(
+        student=student, teacher=teacher, tau=tau,
+        optimizer=make_sgd(cfg, [*student.parameters(), tau]),
+        queue=queue_init(cfg.queue_slots, cfg.queue_per_slot, cfg.feat_dim, device=device),
+        generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def _cand_cap(cfg: DiscoverConfig) -> int:
+    return min(cfg.cand_cap, cfg.voxel_caps[0])  # no more candidates than voxels
+
+
+def draw_step_randoms(state: DiscoverState, cfg: DiscoverConfig) -> dict:
+    """The step's random draws from the state's generator: LaserMix's
+    `num_areas` (int32 scalar from NUM_AREAS_CHOICES) and the k-means
+    initial-row scores (uniform [cand_cap + queue rows])."""
+    g = state.generator
+    dev = g.device
+    choices = torch.as_tensor(NUM_AREAS_CHOICES, dtype=torch.int32, device=dev)
+    pick = torch.randint(len(NUM_AREAS_CHOICES), (), generator=g, device=dev)
+    n = _cand_cap(cfg) + cfg.queue_slots * cfg.queue_per_slot
+    return {"num_areas": choices[pick],
+            "kmeans_scores": torch.rand(n, generator=g, device=dev)}
+
+
+def _combine_batches(sup_vb: dict, unsup_vb: dict, cfg: DiscoverConfig):
+    """Concatenate the sup and unsup voxel buffers, shifting the unsup batch
+    indices by num_sup_scans."""
+    ucoords = unsup_vb["coords"].clone()
+    ucoords[:, 0] += cfg.num_sup_scans
+    return {
+        "coords": torch.cat([sup_vb["coords"], ucoords]),
+        "feats": torch.cat([sup_vb["feats"], unsup_vb["feats"]]),
+        "labels": torch.cat([sup_vb["labels"], unsup_vb["labels"]]),
+        "mapped_labels": torch.cat([sup_vb["mapped_labels"], unsup_vb["mapped_labels"]]),
+        "valid": torch.cat([sup_vb["valid"], unsup_vb["valid"]]),
+    }
+
+
+def _mixed_plan_voxel(cfg: DiscoverConfig, plan, feats0, mapped0, is_sup, pseudo_vox,
+                      num_areas):
+    """The LaserMix plan: the combined plan's level-0 voxels re-batched into
+    the mixed scans. Band parity is a function of the coordinates, so the two
+    copies of a coordinate shared by a sup/unsup pair land in opposite mixed
+    scans and the re-batched keys are unique (`assume_unique`)."""
+    lvl0 = plan.levels[0]
+    g = lasermix_voxel_groups(lvl0.coords, is_sup, cfg.num_sup_scans, num_areas,
+                              cfg.voxel_size)
+    new_coords = torch.cat([g[:, None], lvl0.coords[:, 1:4]], dim=1)
+    mix_plan = build_unet_plan(new_coords, lvl0.valid, cfg.mix_voxel_caps, assume_unique=True,
+                               plan_kernel=cfg.plan_kernel)
+    cap0 = lvl0.coords.shape[0]
+    mix_ok = mix_plan.rep < cap0
+    mix_safe = torch.where(mix_ok, mix_plan.rep, 0).long()
+    mix_feats0 = feats0[mix_safe] * mix_ok[:, None].to(feats0.dtype)
+    src_labels = torch.where(is_sup, mapped0, pseudo_vox)
+    mix_labels0 = torch.where(mix_ok, src_labels[mix_safe], -1)
+    return mix_plan, mix_feats0, mix_labels0
+
+
+def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
+                        cfg: DiscoverConfig, draws: dict | None = None):
+    """One Stage-2 step in place on `state`; returns (state, metrics), the
+    metrics as tensors on the device.
+
+    `draws` replaces the step's random draws (`draw_step_randoms`), e.g. with
+    the JAX package's. Point batches are not needed: the mixed plan is built
+    on the voxel grid."""
+    check_config(cfg)
+    if draws is None:
+        draws = draw_step_randoms(state, cfg)
+    K, Ku = cfg.num_labeled_classes, cfg.num_unlabeled_classes
+    student, teacher = state.student, state.teacher
+    student.train()
+    teacher.train()
+
+    # ---- combined sup + unsup plan ----
+    with torch.profiler.record_function("discover/plan"):
+        plan, feats0, _, mapped0 = plan_and_gather(_combine_batches(sup_vb, unsup_vb, cfg),
+                                                   cfg.voxel_caps, cfg.plan_kernel)
+    n_in = sup_vb["coords"].shape[0] + unsup_vb["coords"].shape[0]
+    ok = plan.rep < n_in
+    valid0 = plan.levels[0].valid
+    is_sup = ok & (plan.rep < cfg.sup_voxel_cap)
+    sup_mask = is_sup & valid0
+    unsup_mask = valid0 & ~is_sup
+    cap0 = cfg.voxel_caps[0]
+
+    # ---- teacher forward: train-mode BN, its statistics become the teacher's ----
+    with torch.no_grad(), torch.profiler.record_function("discover/teacher"):
+        out_t = teacher(plan, feats0)
+        dummy_t = assemble_dummy_logits(out_t)
+        feats_t = out_t["feats"]
+        probs_t = torch.softmax(dummy_t, dim=-1)
+        maxp_t, argm_t = probs_t.max(dim=-1)
+
+    # ---- LaserMix plan from the teacher's pseudo labels ----
+    with torch.no_grad(), torch.profiler.record_function("discover/mix_plan"):
+        pseudo_vox = torch.where(unsup_mask & (maxp_t >= cfg.pseudo_thr), argm_t, -1).to(
+            mapped0.dtype)
+        mix_plan, mix_feats0, mix_labels0 = _mixed_plan_voxel(
+            cfg, plan, feats0, mapped0, is_sup, pseudo_vox, draws["num_areas"])
+
+    # ---- NCC candidate mining, k-means, Hungarian (teacher side, no grad) ----
+    with torch.no_grad(), torch.profiler.record_function("discover/mining"):
+        cand_mask = (dummy_t[:, -1] > state.tau + cfg.threshold_offset) & unsup_mask
+        n_cand = cand_mask.sum().to(torch.int32)
+        cand_cap = _cand_cap(cfg)
+        # a capped subset in hashed row order: plan order is coordinate
+        # order, so a prefix would keep one spatial corner of the scans; the
+        # low 27 bits of the int32-wrapped product are those of the int64 one
+        rows0 = torch.arange(cap0, dtype=torch.int64, device=valid0.device)
+        h = (rows0 * -1640531527) & 0x07FFFFFF
+        key = torch.where(cand_mask, h, h + (1 << 27))
+        cand_rows = torch.argsort(key, stable=True)[:cand_cap]
+        cand_valid = torch.arange(cand_cap, device=valid0.device) < n_cand.clamp(max=cand_cap)
+        cand_feats = feats_t[cand_rows] * cand_valid[:, None]
+
+        qfeats, qvalid = queue_flatten(state.queue)
+        all_feats = torch.cat([cand_feats, qfeats])
+        all_valid = torch.cat([cand_valid, qvalid])
+        n_all = all_valid.sum()
+        heads = student.encoder
+        do_cluster = (n_cand > 0) & (n_all > Ku + cfg.alpha)
+        nclu = Ku + cfg.alpha
+        assign_all, cents = cosine_kmeans(all_feats, all_valid, nclu, draws["kmeans_scores"],
+                                          iters=cfg.kmeans_iters)
+        # drop the alpha clusters the base classifier claims most confidently
+        cluster_logits = cents @ heads.final.kernel + heads.final.bias
+        top = torch.sort(cluster_logits.max(dim=-1).values, descending=True, stable=True)
+        unreliable = top.indices[:cfg.alpha]
+        assign = assign_all[:cand_cap].long()
+        is_unreliable = (assign[:, None] == unreliable[None, :]).any(dim=1)
+        rel_mask = cand_valid & ~is_unreliable
+        n_rel = rel_mask.sum().to(torch.int32)
+        has_novel = do_cluster & (n_rel > 0)
+        # compact-relabel the surviving clusters to 0..M-1
+        present = torch.zeros(nclu, dtype=torch.int32, device=valid0.device).scatter_reduce(
+            0, torch.where(rel_mask, assign, nclu - 1), rel_mask.to(torch.int32), "amax")
+        new_id = torch.cumsum(present, 0) - 1
+        rel_labels = new_id[assign.clamp(0, nclu - 1)].clamp(0, Ku - 1)
+        # per-step Hungarian: novel-head argmax against the cluster labels
+        novel_preds = (cand_feats @ heads.final3.kernel + heads.final3.bias).argmax(dim=-1)
+        cost = confusion_update(novel_preds, rel_labels, Ku, rel_mask)
+        row_of_col = hungarian_small(cost.float(), maximize=True)
+        mapped_novel = row_of_col[rel_labels] + K
+
+    # ---- student: main and mixed forwards, one loss, one backward ----
+    with torch.profiler.record_function("discover/student_main_fwd"):
+        out_s = student(plan, feats0)
+        dummy_s = assemble_dummy_logits(out_s)
+        feats_s = out_s["feats"]
+        sup_targets = torch.where(sup_mask, mapped0, -1)
+        l_sup = cross_entropy(dummy_s, sup_targets, valid0)
+        l_mse = cfg.mse_coeff * mse_prob_loss(torch.softmax(dummy_s, dim=-1), probs_t,
+                                              unsup_mask)
+    with torch.profiler.record_function("discover/student_mix_fwd"):
+        dummy_mix = assemble_dummy_logits(student(mix_plan, mix_feats0))
+        l_lm = cfg.lasermix_coeff * cross_entropy(dummy_mix, mix_labels0,
+                                                  mix_plan.levels[0].valid)
+    with torch.profiler.record_function("discover/losses"):
+        l_cal = cfg.calib_coeff * calibration_loss(dummy_s, sup_targets, cfg.unknown_label,
+                                                   valid0)
+        l_thr = cfg.threshold_loss_weight * adaptive_threshold_loss(
+            dummy_s[:, -1], sup_targets, cfg.unknown_label, state.tau, valid0)
+        # the novel terms, gated by has_novel
+        g = has_novel.float()
+        f2, f3 = heads.final2, heads.final3
+        stud_known_cand = dummy_s[cand_rows][:, :-1]
+        cat_nov = torch.cat([stud_known_cand, cand_feats @ f3.kernel + f3.bias], dim=-1)
+        l_nov_unsup = cfg.novel_coeff * cross_entropy(
+            cat_nov, torch.where(rel_mask, mapped_novel, -1))
+        cat_sup = torch.cat([dummy_s[:, :-1], feats_s @ f3.kernel + f3.bias], dim=-1)
+        l_nov_sup = cfg.sup_novel_coeff * cross_entropy(cat_sup, sup_targets, valid0)
+        ncc_rel = (cand_feats @ f2.kernel + f2.bias).max(dim=-1, keepdim=True).values
+        l_ncc = cfg.ncc_coeff * cross_entropy(
+            torch.cat([stud_known_cand, ncc_rel], dim=-1),
+            torch.where(rel_mask, cfg.unknown_label, -1))
+        loss = l_sup + l_mse + l_lm + l_cal + l_thr + g * (l_nov_unsup + l_nov_sup + l_ncc)
+
+    with torch.profiler.record_function("discover/backward"):
+        lr = make_lr_schedule(cfg)(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with torch.no_grad(), torch.profiler.record_function("discover/update"):
+        state.optimizer.step()
+        # EMA teacher over the parameters only: t <- (1 - m) t + m s
+        m = cfg.ema_momentum
+        tparams = list(teacher.parameters())
+        torch._foreach_mul_(tparams, 1.0 - m)
+        torch._foreach_add_(tparams, list(student.parameters()), alpha=m)
+        # the queue takes this step's reliable candidates only if the novel
+        # branch fired
+        pushed = queue_push(state.queue, cand_feats, rel_mask)
+        state.queue = FeatureQueue(*(torch.where(has_novel, new, old)
+                                     for new, old in zip(pushed, state.queue)))
+    state.step += 1
+
+    metrics = {
+        "loss": loss, "sup_seg": l_sup, "mse": l_mse, "lasermix": l_lm, "calib": l_cal,
+        "thr_loss": l_thr, "novel_unsup": g * l_nov_unsup, "novel_sup": g * l_nov_sup,
+        "ncc_unsup": g * l_ncc,
+    }
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics.update({
+        "tau": state.tau.detach().clone(),
+        "n_cand": n_cand,
+        "cand_overflow": (n_cand - cand_cap).clamp(min=0),
+        # unique voxels dropped by the capacities of the main and mixed plans
+        "plan_overflow": plan_capacity_overflow(plan) + plan_capacity_overflow(mix_plan),
+        "n_rel": n_rel,
+        "has_novel": has_novel.to(torch.int32),
+    })
+    return state, metrics
+
+
+@torch.no_grad()
+def discover_eval_step(state: DiscoverState, vb: dict, pb: dict, inv_lut: torch.Tensor,
+                       cfg: DiscoverConfig) -> torch.Tensor:
+    """The teacher's `forward_discover` eval: argmax over [K known | Ku
+    novel] (the NCC column dropped), mapped to train-label ids, expanded to
+    points; returns the [D, D] confusion increment."""
+    teacher = state.teacher
+    teacher.eval()
+    plan, feats0, _, _ = plan_and_gather(vb, cfg.voxel_caps, cfg.plan_kernel)
+    probs = torch.softmax(assemble_novel_logits(teacher(plan, feats0)), dim=-1)
+    preds_raw = inv_lut[probs[:, :-1].argmax(dim=-1)]
+    n_in = vb["coords"].shape[0]
+    cap0 = cfg.voxel_caps[0]
+    vrow = pb["voxel_row"].reshape(-1)
+    okp = vrow < n_in
+    prow = plan.inverse[torch.where(okp, vrow, 0).long()]
+    okp = okp & (prow < cap0)
+    point_pred = torch.where(okp, preds_raw[torch.where(okp, prow, 0).long()], -1)
+    pvalid = pb["valid"].reshape(-1) & okp
+    return confusion_update(point_pred, pb["labels"].reshape(-1), cfg.num_classes, pvalid)

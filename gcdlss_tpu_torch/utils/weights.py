@@ -1,4 +1,5 @@
-"""Carry weights into a port `MinkUNetSeg`.
+"""Carry weights into a port `MinkUNetSeg` or `MinkUNetRC`, and a JAX
+Stage-2 state into a port `DiscoverState`.
 
 Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
 
@@ -6,7 +7,12 @@ Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
     dicts of numpy arrays) -> the port's modules. Both keep the same kernel
     layouts ([K, Ci, Co], z-fastest offsets, `dcode` pool order), so only the
     names change (`_ref_name`: `conv1s2` -> `conv1p1s2`, `block1/block0` ->
-    `block1.0`, `proj` -> `downsample.0`, BN `scale` -> `weight`).
+    `block1.0`, `proj` -> `downsample.0`, BN `scale` -> `weight`; the heads
+    `final`, `final2`, `final3` -> `encoder.final*`).
+  * `load_jax_discover_state`: a whole JAX `DiscoverState` (student and
+    teacher trees, tau, queue, step) -> a port `DiscoverState`.
+  * `warm_start`: the Stage-1 -> Stage-2 warm start from a port
+    `MinkUNetSeg` state dict.
   * `load_reference_state_dict`: a reference MinkowskiEngine checkpoint
     (`encoder.*.kernel`, `*.bn.weight`, ...) -> the port, permuting kernel
     offsets from ME's order as `import_minkunet` does (`me_order`).
@@ -49,7 +55,9 @@ def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
             for sub, sp in blk.items():
                 ours = {"proj": "downsample.0", "proj_norm": "downsample.1"}.get(sub, sub)
                 module(f"{bpath}.{ours}", sp, bs.get(sub))
-    module("encoder.final", params["final"], None)
+    for head in ("final", "final2", "final3"):
+        if head in params:
+            module(f"encoder.{head}", params[head], None)
     return out
 
 
@@ -58,6 +66,39 @@ def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> 
     sd = {k: torch.as_tensor(np.array(v, np.float32))
           for k, v in jax_to_state_dict(params, batch_stats).items()}
     model.load_state_dict(sd, strict=True)
+
+
+def load_jax_discover_state(state, tree: dict) -> None:
+    """Load a JAX `DiscoverState` given as numpy trees (`params_s`,
+    `batch_stats_s`, `params_t`, `batch_stats_t`, `tau`, `queue` as its
+    (feats, counts, head) triple, `step`) into a port `DiscoverState` in
+    place. The SGD momentum buffers are not carried: they start empty, as
+    at step 0."""
+    from ..algo.queue import FeatureQueue
+
+    load_jax_params(state.student, tree["params_s"], tree["batch_stats_s"])
+    load_jax_params(state.teacher, tree["params_t"], tree["batch_stats_t"])
+    dev = state.tau.device
+    with torch.no_grad():
+        state.tau.copy_(torch.as_tensor(np.asarray(tree["tau"], np.float32)))
+    state.queue = FeatureQueue(*(torch.as_tensor(np.asarray(a), device=dev)
+                                 for a in tree["queue"]))
+    state.step = int(tree["step"])
+
+
+def warm_start(model: torch.nn.Module, pretrained: dict) -> list:
+    """Stage-1 -> Stage-2 warm start: copy the parameters of a port
+    `MinkUNetSeg` state dict (the backbone and `encoder.final`) into a
+    `MinkUNetRC`, as the JAX package's `create_discover_state` copies the
+    `encoder` and `final` trees. Batch-norm statistics and the heads the
+    dict lacks (`final2`, `final3`) stay as they are. Returns the names of
+    the parameters left as they were."""
+    params = dict(model.named_parameters())
+    new = {k: torch.as_tensor(np.asarray(v.detach().cpu() if hasattr(v, "detach") else v,
+                                         np.float32))
+           for k, v in pretrained.items() if k in params}
+    model.load_state_dict(new, strict=False)
+    return sorted(set(params) - set(new))
 
 
 def load_reference_state_dict(model: torch.nn.Module, sd: dict, prefix: str = "",

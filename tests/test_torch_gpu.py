@@ -16,8 +16,10 @@ import torch
 
 from gcdlss_tpu_torch.ops import conv as plain
 from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
-from gcdlss_tpu_torch.ops.plan import build_unet_plan, join_neighbor_map
-from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
+from gcdlss_tpu_torch.ops.coords import SENTINEL_HI
+from gcdlss_tpu_torch.ops.plan import _column_ranks, build_unet_plan, join_neighbor_map
+from gcdlss_tpu_torch.ops.plan_kernel import (cube_candidates_map, cube_candidates_plain,
+                                              cube_neighbor_map)
 
 pytestmark = pytest.mark.gpu
 CAPS = (4096, 2048, 1024, 512, 256)
@@ -84,3 +86,33 @@ def test_wrappers_reject_wrong_inputs(plan):
 def test_cube_map_matches_join(plan, lvl, k1):
     kh, kl = plan.levels[lvl].key_hi, plan.levels[lvl].key_lo
     assert torch.equal(cube_neighbor_map(kh, kl, k1), join_neighbor_map(kh, kl, k1))
+
+
+@pytest.mark.parametrize("lvl,k1", [(0, 5), (0, 3), (1, 3), (3, 3)])
+def test_cube_candidates_matches_plain_and_k3(plan, lvl, k1):
+    kh, kl = plan.levels[lvl].key_hi, plan.levels[lvl].key_lo
+    p, has = _column_ranks(kh != SENTINEL_HI, kh, kl, k1)
+    before = cube_candidates_map.launches
+    got = cube_candidates_map(kh, kl, p, has, k1)
+    assert cube_candidates_map.launches == before + 1
+    assert torch.equal(got, cube_candidates_plain(kh, kl, p, has, k1))
+    assert torch.equal(got, cube_neighbor_map(kh, kl, k1))
+
+
+def test_plan_kernel_1_builds_the_same_plan(plan):
+    lv0 = plan.levels[0]
+    other = build_unet_plan(lv0.coords, lv0.valid, CAPS, plan_kernel=1)
+    assert torch.equal(other.stem_nbr, plan.stem_nbr)
+    for a, b in zip(other.levels, plan.levels):
+        assert torch.equal(a.nbr3, b.nbr3)
+
+
+def test_cube_candidates_rejects_wrong_inputs(plan):
+    kh, kl = plan.levels[1].key_hi, plan.levels[1].key_lo
+    p, has = _column_ranks(kh != SENTINEL_HI, kh, kl, 3)
+    with pytest.raises(TypeError):
+        cube_candidates_map(kh, kl, p, has.int(), 3)
+    with pytest.raises(ValueError):
+        cube_candidates_map(kh, kl, p[:, :-1], has, 3)
+    with pytest.raises(ValueError):
+        cube_candidates_map(kh, kl, p, has, 4)

@@ -168,3 +168,144 @@ def test_plan_capacity_overflow_matches_jax():
     for jpo, tpo in zip(ref.pools, got.pools):
         _eq(jpo.children, tpo.children)
         _eq(jpo.upmap, tpo.upmap)
+
+
+def _unique_perm_coords(seed, n=2048, span=14, nbatch=3, fill=0.8):
+    """Duplicate-free (b, x, y, z) rows in random order, invalid rows mixed in."""
+    coords, valid = _level_coords(seed, cap=n, span=span, nbatch=nbatch)
+    valid &= np.arange(n) < int(n * fill)
+    perm = np.random.default_rng(seed + 100).permutation(n)
+    return coords[perm], valid[perm]
+
+
+def test_sorted_unique_nodup_matches_jax():
+    coords, valid = _unique_perm_coords(11)
+    jh, jl = jc.encode_coords(jnp.asarray(coords), jnp.asarray(valid))
+    th, tl = tc.encode_coords(torch.as_tensor(coords), torch.as_tensor(valid))
+    j = jc.sorted_unique_nodup(jh, jl, coords.shape[0])
+    t = tc.sorted_unique_nodup(th, tl, coords.shape[0])
+    for a, b in ((j[0][0], t[0][0]), (j[0][1], t[0][1]), (j[1], t[1]), (j[2], t[2]),
+                 (j[3], t[3])):
+        _eq(a, b)
+    with pytest.raises(ValueError):
+        tc.sorted_unique_nodup(th, tl, coords.shape[0] - 1)
+
+
+def test_build_unet_plan_assume_unique_matches_jax():
+    coords, valid = _unique_perm_coords(12, span=16, nbatch=2)
+    ref = jax.jit(jp.build_unet_plan, static_argnames=("caps", "assume_unique"))(
+        jnp.asarray(coords), jnp.asarray(valid), caps=CAPS, assume_unique=True)
+    got = tp.build_unet_plan(torch.as_tensor(coords), torch.as_tensor(valid), CAPS,
+                             assume_unique=True)
+    _eq(ref.stem_nbr, got.stem_nbr)
+    _eq(ref.rep, got.rep)
+    _eq(ref.inverse, got.inverse)
+    for jl, tl in zip(ref.levels, got.levels):
+        for f in ("coords", "valid", "count", "nbr3", "key_hi", "key_lo"):
+            _eq(getattr(jl, f), getattr(tl, f))
+    for jpo, tpo in zip(ref.pools, got.pools):
+        for f in ("parent", "dcode", "children", "upmap"):
+            _eq(getattr(jpo, f), getattr(tpo, f))
+
+
+def _edge_level(seed, cap=2048):
+    """A level whose voxels touch every face of the coordinate field (where
+    the arithmetic column queries leave it) plus a dense blob, three batches."""
+    rng = np.random.default_rng(seed)
+    e = (1 << 14) - 1
+    pts = rng.integers(-12, 12, size=(1500, 3))
+    face = rng.integers(-3, 3, size=(300, 3))
+    face[:, 0] = rng.choice([-e - 1, -e, e - 1, e], 300)
+    face2 = rng.integers(-3, 3, size=(300, 3))
+    face2[:, 1] = rng.choice([-e - 1, -e, e - 1, e], 300)
+    xyz = np.concatenate([pts, face, face2])
+    b = rng.integers(0, 3, size=(xyz.shape[0], 1))
+    c = np.unique(np.concatenate([b, xyz], 1), axis=0)[: int(cap * 0.85)].astype(np.int32)
+    coords = np.zeros((cap, 4), np.int32)
+    coords[: len(c)] = c
+    return coords, np.arange(cap) < len(c)
+
+
+@pytest.mark.parametrize("k1", [3, 5])
+def test_sorted_rank_match_and_column_ranks_match_jax(k1):
+    """p equals JAX's everywhere (sentinel queries included), has too, on
+    arithmetic queries that leave the field at its edges."""
+    coords, valid = _edge_level(13)
+    uh, ul = _jax_keys(coords, valid)
+    lvalid = uh != jc.SENTINEL_HI
+    jp_, jhas = jax.jit(jp._column_ranks, static_argnums=3)(lvalid, uh, ul, k1)
+    th, tl = torch.tensor(np.asarray(uh)), torch.tensor(np.asarray(ul))
+    tp_, thas = tp._column_ranks(th != tc.SENTINEL_HI, th, tl, k1)
+    assert tp_.shape == (k1 * k1 - 1, CAPS[0])
+    _eq(jp_, tp_)
+    _eq(jhas, thas)
+    assert bool(thas.any()) and not bool(thas.all())
+    # shifted valid keys, some lo words past the 2^30 clamp, and sentinels
+    rng = np.random.default_rng(14)
+    rows = rng.integers(0, int(np.asarray(lvalid).sum()), 3000)
+    qh = np.asarray(uh)[rows] + rng.integers(-1, 2, 3000)
+    ql = np.asarray(ul)[rows] + rng.integers(-70000, 70000, 3000)
+    ql[:50] = (1 << 30) + rng.integers(0, 1000, 50)
+    qh[50:80] = ql[50:80] = jc.SENTINEL_HI
+    qh, ql = qh.astype(np.int32), ql.astype(np.int32)
+    jr = jax.jit(jj.sorted_rank_match, static_argnums=4)(uh, ul, jnp.asarray(qh),
+                                                         jnp.asarray(ql), 2)
+    tr = tj.sorted_rank_match(th, tl, torch.as_tensor(qh), torch.as_tensor(ql), 2)
+    _eq(jr[0], tr[0])
+    _eq(jr[1], tr[1])
+
+
+def test_cube_candidates_plain_matches_jax_v1_kernel():
+    """K4's plain version against the TPU v1 kernel (rank join + Pallas
+    candidates + far-pair repair) in interpret mode, k = 3, on the
+    distribution of the JAX package's own v1 test."""
+    rng = np.random.default_rng(23)
+    cap = 2048
+    pts = rng.integers(-14, 14, size=(2600, 3)).astype(np.int32)
+    b = rng.integers(0, 3, size=(2600, 1)).astype(np.int32)
+    c = np.unique(np.concatenate([b, pts], 1), axis=0)[: int(cap * 0.9)]
+    coords = np.zeros((cap, 4), np.int32)
+    coords[: len(c)] = c
+    valid = np.arange(cap) < len(c)
+    uh, ul = _jax_keys(coords, valid)
+    lvalid = uh != jc.SENTINEL_HI
+    lcoords = jnp.where(lvalid[:, None], jc.decode_keys(uh, ul), 0)
+    ref = jp._build_cube_kernel_map(lcoords, lvalid, uh, ul, 3, interpret=True, version=1)
+    th, tl = torch.tensor(np.asarray(uh)), torch.tensor(np.asarray(ul))
+    p, has = tp._column_ranks(th != tc.SENTINEL_HI, th, tl, 3)
+    before = tpk.cube_candidates_map.launches
+    got = tpk.cube_candidates_map(th, tl, p, has, 3)
+    assert tpk.cube_candidates_map.launches == before  # CPU tensors: plain version
+    _eq(ref, got)
+    _eq(ref, tp.join_neighbor_map(th, tl, 3))
+
+
+@pytest.mark.parametrize("k1", [3, 5])
+def test_cube_candidates_plain_matches_jax_at_field_edge(k1):
+    """Where the arithmetic queries leave the field they differ from the
+    join's clipped ones; there the reference is the JAX package's column
+    build, which resolves the same arithmetic queries as v1."""
+    coords, valid = _edge_level(15)
+    uh, ul = _jax_keys(coords, valid)
+    lvalid = uh != jc.SENTINEL_HI
+    lcoords = jnp.where(lvalid[:, None], jc.decode_keys(uh, ul), 0)
+    ref = jp._build_cube_neighbor_map(lcoords, lvalid, uh, ul, k1)
+    th, tl = torch.tensor(np.asarray(uh)), torch.tensor(np.asarray(ul))
+    got = tp.neighbor_map(th, tl, k1, plan_kernel=1)
+    _eq(ref, got)
+    assert not torch.equal(got, tp.join_neighbor_map(th, tl, k1))
+
+
+def test_build_unet_plan_plan_kernel_1_matches_jax():
+    coords, valid = _level_coords(5, span=16, nbatch=2)
+    ref = jax.jit(jp.build_unet_plan, static_argnames=("caps", "presorted"))(
+        jnp.asarray(coords), jnp.asarray(valid), caps=CAPS, presorted=True)
+    got = tp.build_unet_plan(torch.as_tensor(coords), torch.as_tensor(valid), CAPS,
+                             presorted=True, plan_kernel=1)
+    _eq(ref.stem_nbr, got.stem_nbr)
+    for jl, tl in zip(ref.levels, got.levels):
+        _eq(jl.nbr3, tl.nbr3)
+    for bad in (0, 3, "1"):
+        with pytest.raises(ValueError):
+            tp.build_unet_plan(torch.as_tensor(coords), torch.as_tensor(valid), CAPS,
+                               presorted=True, plan_kernel=bad)
