@@ -23,18 +23,34 @@ Phases, each of which raises on failure:
   4. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
      on the card (kernels) and on the CPU (plain versions) with the same
      weights, relative error <= REF_TOL;
-  5. Stage-1 slice: `ExpPretrain` with MinkUNet34 in bf16, 3 steps at batch 2
-     through the repository's `SemanticKITTIDataset` and `PrefetchLoader`,
+  5. conv parts: the component kernels P1-P4 of `ops/conv_parts.py` (window
+     staging, gather, product, one-hot conv) and K1, every mode of
+     `tools/conv_parts.py`, against their plain versions at the tool's two
+     configurations (262,144 rows x 96 channels; 131,072 x 256); then the
+     tool's own `main` at 262,144 x 96, every mode once;
+  6. Stage-1 slice: `ExpPretrain` with MinkUNet34 in bf16, 3 steps at batch 2
+     through the port's `SemanticKITTIDataset` and `PrefetchLoader`
+     (per-scan seeds: the same batches, so the same losses, on every run),
      then `validate` on 2 scans;
-  6. Stage-2 slice: `ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive` at the
+  7. Stage-2 slice: `ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive` at the
      `bench.py` Stage-2 configuration (MinkUNet34, bf16, 2 + 2 scans), 3
      steps with `plan_kernel=2` and 1 with `plan_kernel=1` through its own
      loaders, then `validate` on 4 scans.
 
-Each slice sets every kernel's launch count to 0 just before it and reads it
-just after: each kernel of its path must have launched. Prints the card's name and power limit, a JSON line with every kernel
-comparison, and as its last line {"ok": true, "device": {...}}. Exits non-zero
-without that line when there is no CUDA device or a phase fails.
+Each path (the tool's `main`, the Stage-1 slice, the Stage-2 slice) sets
+every kernel's launch count to 0 just before it and reads it just after: each
+kernel of its path must have launched. Every kernel row carries its bound,
+the least time the card could take for the same work: the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+operations (those this run's data needs: present entries only) over 989
+TFLOP/s, the published H100 SXM peaks; `bound_measured_ms` is the same with
+the copy bandwidth and the bf16 matmul rate measured in this run;
+`library_ms` is the time of one PyTorch call for the same function where
+there is one (P2: `embedding_bag`, `mul`, `sum`; P3: `conv2d`), else null. Prints the
+card's name and power limit, a JSON line with every kernel comparison, and as
+its last line {"ok": true, "device": {...}}. Exits non-zero without that line
+when there is no CUDA device or a phase fails. It imports nothing of JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +73,8 @@ S2_CAP0 = 2 * CAP0  # Stage 2: 2 labeled scans in [0, CAP0), 2 unlabeled after
 OUT_TOL = 1e-2  # max|kernel - plain| <= OUT_TOL * max|plain| (outputs, dX)
 DW_TOL = 5e-3  # relative Frobenius error of dW
 REF_TOL = 2e-2  # relative Frobenius error of the small-input logits, card vs CPU
+PARTS_CONFIG = (262_144, 96)  # rows, channels of the conv-parts tool's main run here
+MEASURED = {}  # "bytes_per_s", "bf16_flops": this card, this run (rates_phase)
 
 
 def log(*args):
@@ -76,6 +94,40 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_once: int, flops: int) -> dict:
+    """The least time for work that moves `nbytes_once` bytes and does
+    `flops` bf16-input operations: at the published peaks (`bound_ms`,
+    `bound_by`) and at this run's measured rates (`bound_measured_ms`)."""
+    from gcdlss_tpu_torch.utils.roofline import bound_ms
+
+    ms, by = bound_ms(nbytes_once, flops)
+    measured = bound_ms(nbytes_once, flops, MEASURED["bytes_per_s"], MEASURED["bf16_flops"])[0]
+    return dict(bound_ms=ms, bound_by=by, bound_measured_ms=measured,
+                library_ms=None)  # K1-K4: no single PyTorch call computes one; P rows take the tool's
+
+
+def rates_phase(device) -> None:
+    """This card's copy bandwidth (a 1 GiB device-to-device copy: read +
+    write) and bf16 dense matmul rate (8192^3), for `bound_measured_ms`."""
+    import torch
+
+    src = torch.empty(2 ** 30, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    ms = cuda_time_ms(lambda: dst.copy_(src), reps=10)
+    MEASURED["bytes_per_s"] = 2 * src.numel() / (ms * 1e-3)
+    del src, dst
+    a = torch.randn(8192, 8192, device=device).to(torch.bfloat16)
+    b = torch.randn(8192, 8192, device=device).to(torch.bfloat16)
+    ms = cuda_time_ms(lambda: a @ b, reps=10)
+    MEASURED["bf16_flops"] = 2 * 8192 ** 3 / (ms * 1e-3)
+    log(f"rates: device-to-device copy {MEASURED['bytes_per_s'] / 1e12:.3f} TB/s (read + write), "
+        f"bf16 matmul {MEASURED['bf16_flops'] / 1e12:.1f} TFLOP/s")
+
+
 def voxel_batch(rng, device, sides: int = 1):
     """`sides` groups of BATCH synthetic scans quantized at VOXEL_SIZE, each
     group concatenated in (b, x, y, z) order into CAP0 rows as the host
@@ -83,8 +135,8 @@ def voxel_batch(rng, device, sides: int = 1):
     and unlabeled buffers, batch indices continuing across them)."""
     import torch
 
-    from bench import synth_scan_points
-    from gcdlss_tpu.data.quantize_np import sparse_quantize_np
+    from gcdlss_tpu_torch.data import synth_scan_points
+    from gcdlss_tpu_torch.data.quantize_np import sparse_quantize_np
 
     coords = np.zeros((sides * CAP0, 4), np.int32)
     valid = np.zeros(sides * CAP0, bool)
@@ -131,7 +183,8 @@ def kernel_phase(device) -> list:
                 rows.append(dict(name=f"K3 cube_map L{lev} k{k1}", route="cuda",
                                  source="gcdlss_tpu_torch/csrc/cube_map.cu",
                                  replaces="gcdlss_tpu/ops/plan_kernel.py:378",
-                                 max_abs_err=float(mism), ms=ms, plain_ms=pms))
+                                 max_abs_err=float(mism), ms=ms, plain_ms=pms,
+                                 **bound(nbytes(lv.key_hi, lv.key_lo, got), 0)))
                 line += f" | kernel {ms:.3f} ms, plain {pms:.3f} ms"
             log(line)
             if mism:
@@ -166,6 +219,9 @@ def gemm_phase(plan, device, tag: str) -> list:
         w = (torch.randn(k, ci, co, device=device) * (2.0 / (k * ci)) ** 0.5).to(torch.bfloat16)
         g = torch.randn(nbr.shape[0], co, device=device).to(torch.bfloat16)
 
+        # the operations this book needs: present entries only; dense = all K
+        nnz, flops_entry = int((nbr >= 0).sum()), 2 * ci * co
+        dense = bound(0, nbr.numel() * flops_entry)["bound_ms"]
         out = gather_gemm(x, nbr, w)
         ref = plain.gather_conv(x, nbr, w)
         err = float((out - ref).abs().max())
@@ -179,7 +235,9 @@ def gemm_phase(plan, device, tag: str) -> list:
         rows.append(dict(name=f"K1 gather_gemm {name}", route="cuda",
                          source="gcdlss_tpu_torch/csrc/gather_gemm.cu",
                          replaces="gcdlss_tpu/ops/fused_conv.py:312",
-                         max_abs_err=err, ms=ms, plain_ms=pms))
+                         max_abs_err=err, ms=ms, plain_ms=pms, fill=nnz / nbr.numel(),
+                         bound_dense_ms=max(dense, bound(nbytes(x, nbr, w, out), 0)["bound_ms"]),
+                         **bound(nbytes(x, nbr, w, out), nnz * flops_entry)))
 
         dx, dw = gather_gemm_backward(x, g, adj, w)
         rdx, rdw = plain.gather_conv_backward(x, g, adj, w)
@@ -198,7 +256,9 @@ def gemm_phase(plan, device, tag: str) -> list:
                          source="gcdlss_tpu_torch/csrc/gather_gemm.cu",
                          replaces="gcdlss_tpu/ops/fused_conv.py:379",
                          max_abs_err=max(dx_err, float((dw - rdw).abs().max())),
-                         ms=ms, plain_ms=pms))
+                         ms=ms, plain_ms=pms, fill=nnz / nbr.numel(),
+                         bound_dense_ms=max(2 * dense, bound(nbytes(x, g, adj, w, dx, dw), 0)["bound_ms"]),
+                         **bound(nbytes(x, g, adj, w, dx, dw), 2 * nnz * flops_entry)))
     return rows
 
 
@@ -247,7 +307,8 @@ def stage2_kernel_phase(device) -> list:
                          source="gcdlss_tpu_torch/csrc/cube_cand.cu",
                          replaces="gcdlss_tpu/ops/plan_kernel.py:75",
                          max_abs_err=float(mism["plain"]), ms=ms, plain_ms=pms,
-                         ranks_plus_kernel_ms=rms, k3_ms=k3ms))
+                         ranks_plus_kernel_ms=rms, k3_ms=k3ms,
+                         **bound(nbytes(kh, kl, p, has, got), 0)))
     return rows + gemm_phase(plan, device, "stage2")
 
 
@@ -258,7 +319,7 @@ def reference_phase(device) -> None:
 
     import torch
 
-    from gcdlss_tpu.data.quantize_np import sparse_quantize_np
+    from gcdlss_tpu_torch.data.quantize_np import sparse_quantize_np
     from gcdlss_tpu_torch.ops.plan import build_unet_plan
     from gcdlss_tpu_torch.train.common import default_caps
     from gcdlss_tpu_torch.train.pretrain import PretrainConfig, make_model
@@ -297,12 +358,56 @@ def reference_phase(device) -> None:
         raise AssertionError(f"reference: card logits differ from the CPU's by {rel} (relative)")
 
 
+def part_kernels() -> dict:
+    from gcdlss_tpu_torch.ops import conv_parts
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm
+
+    return {"P1": conv_parts.window_sum, "P2": conv_parts.gather_sum,
+            "P3": conv_parts.tile_gemm, "P4": conv_parts.onehot_conv, "K1": gather_gemm}
+
+
+def conv_parts_phase(device, card: str):
+    """P1-P4 (and K1 beside them) against their plain versions at the tool's
+    two full-width configurations, every mode, within the tool's tolerances
+    (`tool.TOL`: P1 1e-3, P2 1e-5, P3 and P4 1e-2 of max|plain|, index_only
+    exact; `run_config` exits non-zero on a mismatch); then the tool's `main`
+    at PARTS_CONFIG with every mode once, its launches counted. Returns
+    (kernel rows, launches of that run)."""
+    from gcdlss_tpu_torch.tools import conv_parts as tool
+
+    rows = []
+    for n, c, voxel in tool.DEFAULT_CONFIGS:
+        for r in tool.run_config(device, n, c, voxel, reps=5, seed=0, gpu=card):
+            if r["part"] != "K1":  # K1's rows come from the stage plans
+                rows.append(dict(name=f"{r['part']} {r['kernel']} {r['mode']} N{n} C{c}",
+                                 route="cuda", source="gcdlss_tpu_torch/csrc/conv_parts.cu",
+                                 replaces=r["tpu_tool"].split(" ")[0].rstrip(";"),
+                                 max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                 plain_ms=r["plain_ms"], **bound(r["min_bytes"], r["flops"]))
+                            | {"library_ms": r["library_ms"]})
+
+    kernels = part_kernels()
+    out = ROOT / "build" / "conv_parts.json"
+    for fn in kernels.values():
+        fn.launches = 0
+    n, c = PARTS_CONFIG
+    rc = tool.main(["--rows", str(n), "--channels", str(c), "--reps", "1", "--json-out", str(out)])
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    modes = json.loads(out.read_text())
+    log(f"conv parts: tool main rc {rc}, {len(modes)} modes at {n} x {c}; launches {launches}")
+    if rc != 0 or len(modes) != 24:
+        raise AssertionError(f"conv parts: tool main rc {rc}, {len(modes)} modes, expected 24")
+    if not all(count > 0 for count in launches.values()):
+        raise AssertionError(f"conv parts: a kernel was not launched: {launches}")
+    return rows, launches
+
+
 def write_kitti_tree(root: Path, rng, n_train: int, n_valid: int) -> None:
     """SemanticKITTI layout: `n_train` train scans (seq 00), `n_valid` valid
     scans (seq 08), 80k synthetic points each, labels drawn from the 19
     classes' raw ids."""
-    from bench import synth_scan_points
-    from gcdlss_tpu.data.meta import KITTI_LEARNING_MAP_INV
+    from gcdlss_tpu_torch.data import synth_scan_points
+    from gcdlss_tpu_torch.data.meta import KITTI_LEARNING_MAP_INV
 
     raw_ids = np.array([v for k, v in KITTI_LEARNING_MAP_INV.items() if k >= 0], np.int32)
     for seq, n in (("00", n_train), ("08", n_valid)):
@@ -320,7 +425,7 @@ def write_kitti_tree(root: Path, rng, n_train: int, n_valid: int) -> None:
 def label_space():
     """SemanticKITTI split 1: (unknown raw labels, label mapping, its
     inverse, the unknown slot)."""
-    from gcdlss_tpu.data import build_label_mapping, dataset_meta, split_table
+    from gcdlss_tpu_torch.data import build_label_mapping, dataset_meta, split_table
 
     unknown, _ = split_table("SemanticKITTI", 1)
     mapping, inv, unk = build_label_mapping(
@@ -331,7 +436,7 @@ def label_space():
 def stage1_phase(device, gpu_name: str) -> dict:
     import torch
 
-    from gcdlss_tpu.data import PrefetchLoader, SemanticKITTIDataset
+    from gcdlss_tpu_torch.data import PrefetchLoader, SemanticKITTIDataset
     from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
     from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
     from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
@@ -405,7 +510,7 @@ def stage2_phase(device, gpu_name: str) -> dict:
 
     import torch
 
-    from gcdlss_tpu.data import SemanticKITTIDataset
+    from gcdlss_tpu_torch.data import SemanticKITTIDataset
     from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
     from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
     from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
@@ -496,7 +601,8 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]  # name, power limit
+    log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -508,17 +614,30 @@ def main() -> int:
     _build.library()
     log(f"build: {lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
 
+    rates_phase(device)
     rows = kernel_phase(device) + stage2_kernel_phase(device)
     reference_phase(device)
+    part_rows, launches_parts = conv_parts_phase(device, card)
     launches_s1 = stage1_phase(device, gpu_name)
     launches_s2 = stage2_phase(device, gpu_name)
-    # `launches` counts the Stage-2 path (the system's main path, which runs
-    # all four kernels); `launches_stage1` the Stage-1 path
+    # `launches`: K1-K4 on the Stage-2 path (the training path that runs all
+    # four; `launches_stage1` the Stage-1 path), P1-P4 in the tool's main run
+    # (their only path; K1's launches there are `launches_parts`)
     for r in rows:
         r["launches"] = launches_s2[r["name"][:2]]
         r["launches_stage1"] = launches_s1[r["name"][:2]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
-    extra = ("launches_stage1", "ranks_plus_kernel_ms", "k3_ms")
+        if r["name"][:2] == "K1":
+            r["launches_parts"] = launches_parts["K1"]
+    for r in part_rows:
+        r["launches"] = launches_parts[r["name"][:2]]
+    rows += part_rows
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    extra = ("launches_stage1", "launches_parts", "bound_measured_ms", "bound_dense_ms", "fill",
+             "ranks_plus_kernel_ms", "k3_ms")
+    missing = [(r["name"], k) for r in rows for k in keys if k not in r]
+    if missing:
+        raise AssertionError(f"kernel rows lack keys: {missing}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,8 @@ the reference's `ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive`.
 
 Two loaders at batch_size // 2 each (labeled and unlabeled), the
 `discover_train_step` per pair of batches, and validation with the
-discovery mIoU protocol. The loaders are the repository's jax-free
-`gcdlss_tpu.data.PrefetchLoader`.
+discovery mIoU protocol. The loaders are the port's `data.PrefetchLoader`
+with per-scan seeds: the same batches on every run, for any worker count.
 """
 
 from __future__ import annotations
@@ -15,8 +15,7 @@ import time
 import numpy as np
 import torch
 
-from gcdlss_tpu.data import PrefetchLoader
-
+from ..data import PrefetchLoader
 from ..eval.metrics import discovery_iou
 from .common import inv_label_lut, point_batch_to_device, voxel_batch_to_device
 from .discover import (DiscoverConfig, create_discover_state, discover_eval_step,

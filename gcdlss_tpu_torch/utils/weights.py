@@ -23,12 +23,64 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gcdlss_tpu.utils.import_torch import _conv_in, _ref_name
-
 from ..models.layers import Linear, SparseBatchNorm
 
 _BN = (("weight", "scale", "params"), ("bias", "bias", "params"),
        ("running_mean", "mean", "batch_stats"), ("running_var", "var", "batch_stats"))
+
+
+def offset_permutation(ksize: int, me_order: str = "first_fastest") -> np.ndarray:
+    """perm[ours] = me_index so that ours_kernel = me_kernel[perm].
+
+    Our offset order is `itertools.product(r, r, r)` (z fastest)."""
+    perm = np.zeros(ksize ** 3, np.int64)
+    r = range(ksize)
+    for xi in r:
+        for yi in r:
+            for zi in r:
+                o = (xi * ksize + yi) * ksize + zi
+                # "last_fastest" is our own order
+                perm[o] = xi + ksize * yi + ksize * ksize * zi if me_order == "first_fastest" else o
+    return perm
+
+
+def dcode_permutation(me_order: str = "first_fastest") -> np.ndarray:
+    """perm[dcode] = me k2 index. dcode = (x<<2 | y<<1 | z)."""
+    perm = np.zeros(8, np.int64)
+    for x in range(2):
+        for y in range(2):
+            for z in range(2):
+                o = (x << 2) | (y << 1) | z
+                perm[o] = (x + 2 * y + 4 * z) if me_order == "first_fastest" else o
+    return perm
+
+
+def _ref_name(name: str) -> str:
+    """Our encoder module name -> the reference's attribute (under `encoder.`)."""
+    if name == "conv0p1s1" or name.startswith(("final", "bn", "block")):
+        return name
+    if name.startswith("convtr"):
+        j = int(name[6:-2])
+        return f"convtr{j}p{2 ** (8 - j)}s2"
+    if name.startswith("conv") and name.endswith("s2"):
+        i = int(name[4:-2])
+        return f"conv{i}p{2 ** (i - 1)}s2"
+    raise KeyError(f"unmapped module {name}")
+
+
+def _conv_in(sd, key, shape, me_order):
+    """The reference kernel `sd[key]` in our offset order, as float32."""
+    w = sd[key]
+    w = (w.detach().cpu().numpy() if hasattr(w, "detach") else np.asarray(w)).astype(np.float32)
+    assert tuple(w.shape) == tuple(shape), (key, w.shape, shape)
+    if w.ndim == 2:  # k=1 conv
+        return w
+    k = shape[0]
+    if k == 8:
+        return w[dcode_permutation(me_order)]
+    ks = round(k ** (1.0 / 3.0))
+    assert ks ** 3 == k, (key, k)
+    return w[offset_permutation(ks, me_order)]
 
 
 def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
@@ -106,7 +158,7 @@ def load_reference_state_dict(model: torch.nn.Module, sd: dict, prefix: str = ""
     """Load a reference-layout state dict (numpy arrays or CPU tensors).
 
     Kernel offsets are permuted from ME's order (`me_order`, see
-    `gcdlss_tpu.utils.import_torch.offset_permutation`). Tensors the dict
+    `offset_permutation`). Tensors the dict
     lacks (e.g. heads a Stage-1 checkpoint has no use for) keep their values,
     like the reference's strict=False load; their names are returned."""
     new, missing = {}, []

@@ -38,6 +38,7 @@ from gcdlss_tpu_torch import losses as tl
 from gcdlss_tpu_torch.algo import hungarian as thung
 from gcdlss_tpu_torch.algo import kmeans as tkm
 from gcdlss_tpu_torch.algo import queue as tq
+from gcdlss_tpu_torch.data import SemanticKITTIDataset as TorchSemanticKITTIDataset
 from gcdlss_tpu_torch.eval import metrics as tmet
 from gcdlss_tpu_torch.models import minkunet as tmk
 from gcdlss_tpu_torch.train import common as tcommon
@@ -255,13 +256,18 @@ def setup(tmp_path_factory):
               warmup_epochs=1)
     jcfg, tcfg = jd.DiscoverConfig(**kw), td.DiscoverConfig(**kw)
     dskw = dict(voxel_size=0.15, label_mapping=mapping, unknown_labels=unknown)
-    lab_ds = SemanticKITTIDataset(root, "train", split_indices=np.array([0, 1]), labeled=True,
-                                  downsampling=800, augment=True, resize_aug=True, seed=0,
-                                  **dskw)
-    unlab_ds = SemanticKITTIDataset(root, "train", split_indices=np.array([0, 1]),
-                                    labeled=False, downsampling=800, augment=True, seed=1,
-                                    **dskw)
-    val_ds = SemanticKITTIDataset(root, "valid", **dskw)
+
+    def datasets(cls):
+        return (cls(root, "train", split_indices=np.array([0, 1]), labeled=True,
+                    downsampling=800, augment=True, resize_aug=True, seed=0, **dskw),
+                cls(root, "train", split_indices=np.array([0, 1]), labeled=False,
+                    downsampling=800, augment=True, seed=1, **dskw),
+                cls(root, "valid", **dskw))
+
+    # the batches both steps are fed come from the JAX package's datasets; the
+    # port's experiment module runs on the port's own datasets and loaders
+    lab_ds, unlab_ds, val_ds = datasets(SemanticKITTIDataset)
+    port_ds = datasets(TorchSemanticKITTIDataset)
     sup = collate_batch([lab_ds[0], lab_ds[1]], SUP_CAP, point_cap=POINT_CAP)
     unsup = collate_batch([unlab_ds[0], unlab_ds[1]], CAPS[0] - SUP_CAP, point_cap=POINT_CAP)
     val = collate_batch([val_ds[0], val_ds[1]], CAPS[0], point_cap=1024)
@@ -306,7 +312,7 @@ def setup(tmp_path_factory):
         tcommon.point_batch_to_device(val["points"], "cpu"), torch.as_tensor(lut), tcfg)
     return dict(jsteps=jsteps, tsteps=tsteps, jconf=jconf, tconf=tconf, tstate=tstate,
                 tree0=tree0, tcfg=tcfg, jcfg=jcfg, sup=sup, unsup=unsup, mapping=mapping,
-                inv=inv, lab_ds=lab_ds, unlab_ds=unlab_ds, val_ds=val_ds)
+                inv=inv, lab_ds=port_ds[0], unlab_ds=port_ds[1], val_ds=port_ds[2])
 
 
 def test_minkunet_rc_forward_matches_jax(setup):
@@ -389,7 +395,7 @@ def test_discover_eval_confusion_matches_jax(setup):
 
 
 def test_exp_module_epoch_and_validate(setup):
-    """The host loop through the repository's loaders, with K4 maps."""
+    """The host loop through the port's datasets and loaders, with K4 maps."""
     s = setup
     cfg = dataclasses.replace(s["tcfg"], plan_kernel=1)
     exp = ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(cfg, s["mapping"], s["inv"], seed=0)
