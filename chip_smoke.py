@@ -14,12 +14,15 @@ Phases, each of which raises on failure:
      backward (K2), on CUDA tensors at the Stage-1 path's shapes (2 synthetic
      80k-point scans at 0.05 m voxels, cap0 = 138,240), each held against its
      plain PyTorch version on the same bf16-rounded inputs and timed beside it
-     with CUDA events;
+     with CUDA events; K1's bf16 result must equal its f32 result cast, and
+     two runs of K2 must give the same bits;
   3. Stage-2 kernels: the rank-based neighbor map K4 (`plan_kernel=1`) at
      the Stage-2 path's shapes (2 labeled + 2 unlabeled scans, cap0 =
      276,480), at L0 k5, L0 k3 and L1 k3, against its plain version, K3 and
      the join path, bit for bit, and timed beside K3 and the plain version;
-     then K1/K2 at that plan's convs, as in phase 2;
+     then K1/K2 at that plan's convs, as in phase 2; then K1/K2 on books
+     no plan makes (random, all absent, full, ragged row counts and widths,
+     N_in != N_out, a misaligned x) against their plain versions;
   4. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
      on the card (kernels) and on the CPU (plain versions) with the same
      weights, relative error <= REF_TOL;
@@ -193,9 +196,12 @@ def kernel_phase(device) -> list:
 
 
 def gemm_phase(plan, device, tag: str) -> list:
-    """K1/K2 at the path's convs of `plan` (stem, L0 and L3 k3, a down and
-    an up pool book), each against its plain version on the same
-    bf16-rounded inputs, timed beside it."""
+    """K1/K2 at the path's convs of `plan` (stem, the k3 books of L0, L1, L3
+    and L4, a down and an up pool book), each against its plain version on
+    the same bf16-rounded inputs, timed beside it. Also held: K1's bf16
+    result equals its f32 result cast, and two runs of K2 give the same bits.
+    `strips_kept` is the share of (16-row strip, offset) pairs K1 visits and
+    `pairs` the present pairs dW visits, both by the plain rules."""
     import torch
 
     from gcdlss_tpu_torch.ops import conv as plain
@@ -206,7 +212,9 @@ def gemm_phase(plan, device, tag: str) -> list:
     cases = [  # name, x rows, fwd book, adjoint book, ci, co
         ("stem L0 k5 1->32", lv[0].valid, plan.stem_nbr, plan.stem_nbr.flip(1), 1, 32),
         ("L0 k3 128->96", lv[0].valid, lv[0].nbr3, lv[0].nbr3.flip(1), 128, 96),
+        ("L1 k3 64->64", lv[1].valid, lv[1].nbr3, lv[1].nbr3.flip(1), 64, 64),
         ("L3 k3 256->256", lv[3].valid, lv[3].nbr3, lv[3].nbr3.flip(1), 256, 256),
+        ("L4 k3 256->256", lv[4].valid, lv[4].nbr3, lv[4].nbr3.flip(1), 256, 256),
         ("down L0->L1 32->32", lv[0].valid, pools[0].children, pools[0].upmap, 32, 32),
         ("up L4->L3 256->256", lv[4].valid, pools[3].upmap, pools[3].children, 256, 256),
     ]
@@ -226,16 +234,22 @@ def gemm_phase(plan, device, tag: str) -> list:
         ref = plain.gather_conv(x, nbr, w)
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
+        if not torch.equal(gather_gemm(x, nbr, w, out_dtype=torch.bfloat16),
+                           out.to(torch.bfloat16)):
+            raise AssertionError(f"K1 {name}: the bf16 result is not the f32 result cast")
         ms = cuda_time_ms(lambda: gather_gemm(x, nbr, w))
         pms = cuda_time_ms(lambda: plain.gather_conv(x, nbr, w))
+        kept = float(plain.strips_kept_plain(nbr).float().mean())
         log(f"K1 {name}: max|d| {err:.3e} (max|ref| {scale:.3e}) | "
-            f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {pms:.3f} ms | fill {nnz / nbr.numel():.3f}, "
+            f"strips kept {kept:.3f}")
         if not err <= OUT_TOL * scale:
             raise AssertionError(f"K1 {name}: error {err} above {OUT_TOL} x {scale}")
         rows.append(dict(name=f"K1 gather_gemm {name}", route="cuda",
                          source="gcdlss_tpu_torch/csrc/gather_gemm.cu",
                          replaces="gcdlss_tpu/ops/fused_conv.py:312",
                          max_abs_err=err, ms=ms, plain_ms=pms, fill=nnz / nbr.numel(),
+                         strips_kept=kept,
                          bound_dense_ms=max(dense, bound(nbytes(x, nbr, w, out), 0)["bound_ms"]),
                          **bound(nbytes(x, nbr, w, out), nnz * flops_entry)))
 
@@ -244,10 +258,17 @@ def gemm_phase(plan, device, tag: str) -> list:
         dx_err = float((dx - rdx).abs().max())
         dx_scale = float(rdx.abs().max())
         dw_rel = float(torch.linalg.vector_norm(dw - rdw) / torch.linalg.vector_norm(rdw))
+        dx2, dw2 = gather_gemm_backward(x, g, adj, w)
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(f"K2 {name}: two runs on the same inputs differ")
         ms = cuda_time_ms(lambda: gather_gemm_backward(x, g, adj, w))
+        dw_ms = cuda_time_ms(lambda: gather_gemm_backward(x, g, adj, w, need_dx=False))
         pms = cuda_time_ms(lambda: plain.gather_conv_backward(x, g, adj, w))
+        pairs = int((adj >= 0).sum())
+        adj_kept = float(plain.strips_kept_plain(adj).float().mean())
         log(f"K2 {name}: dX max|d| {dx_err:.3e} (max|ref| {dx_scale:.3e}), "
-            f"dW rel-Frobenius {dw_rel:.3e} | kernel {ms:.3f} ms, plain {pms:.3f} ms")
+            f"dW rel-Frobenius {dw_rel:.3e} | kernel {ms:.3f} ms (dW alone {dw_ms:.3f}), "
+            f"plain {pms:.3f} ms | pairs {pairs}, dX strips kept {adj_kept:.3f}")
         if not dx_err <= OUT_TOL * dx_scale:
             raise AssertionError(f"K2 {name}: dX error {dx_err} above {OUT_TOL} x {dx_scale}")
         if not dw_rel <= DW_TOL:
@@ -256,10 +277,93 @@ def gemm_phase(plan, device, tag: str) -> list:
                          source="gcdlss_tpu_torch/csrc/gather_gemm.cu",
                          replaces="gcdlss_tpu/ops/fused_conv.py:379",
                          max_abs_err=max(dx_err, float((dw - rdw).abs().max())),
-                         ms=ms, plain_ms=pms, fill=nnz / nbr.numel(),
+                         ms=ms, dw_only_ms=dw_ms, plain_ms=pms, fill=nnz / nbr.numel(),
+                         strips_kept=adj_kept, pairs=pairs,
                          bound_dense_ms=max(2 * dense, bound(nbytes(x, g, adj, w, dx, dw), 0)["bound_ms"]),
                          **bound(nbytes(x, g, adj, w, dx, dw), 2 * nnz * flops_entry)))
     return rows
+
+
+def adversarial_phase(device) -> None:
+    """K1/K2 against their plain versions on books the plans never make, at
+    4,096-20,000 rows: a random book with no locality, an all-absent and a
+    full one, row counts that are no multiple of any tile, N_in != N_out,
+    widths 1 .. 384 (ragged ones included) and an x whose storage starts 2
+    bytes off a 16-byte boundary. The reverse-book reading (the adjoint of a
+    submanifold book, in place) is held against an explicit flip."""
+    import torch
+
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def book(n_out, n_in, k, kind):
+        if kind == "absent":
+            return torch.full((n_out, k), -1, dtype=torch.int32, device=device)
+        nbr = torch.randint(0, n_in, (n_out, k), generator=gen, device=device, dtype=torch.int32)
+        if kind == "full":
+            return nbr
+        fill = {"random": 0.2, "sparse": 0.01}[kind]
+        keep = torch.rand((n_out, k), generator=gen, device=device) < fill
+        if kind == "sparse":  # whole strips and whole offsets empty
+            keep[n_out // 3:2 * n_out // 3] = False
+            keep[:, ::2] = False
+        return torch.where(keep, nbr, -1)
+
+    cases = [  # n_out, n_in, k, ci, co, kind
+        (4096, 4096, 27, 1, 20, "random"), (5000, 5000, 27, 4, 32, "random"),
+        (4099, 6001, 8, 8, 96, "random"), (20000, 7000, 27, 24, 256, "random"),
+        (4097, 4097, 27, 48, 20, "sparse"), (6000, 6000, 27, 96, 96, "sparse"),
+        (4100, 9000, 8, 192, 32, "random"), (5001, 5001, 27, 384, 256, "random"),
+        (4096, 4096, 27, 96, 96, "absent"), (4111, 4111, 27, 48, 32, "full"),
+        (4096, 4096, 125, 1, 32, "sparse"), (4500, 4500, 9, 20, 20, "random"),
+        (4500, 4500, 3, 64, 128, "full"),
+    ]
+    worst = 0.0
+    for n_out, n_in, k, ci, co, kind in cases:
+        # K1 reads nbr and K2 reads adj; neither kernel needs the two to be adjoint
+        nbr, adj = book(n_out, n_in, k, kind), book(n_in, n_out, k, kind)
+        w = (torch.randn(k, ci, co, generator=gen, device=device) * (2.0 / (k * ci)) ** 0.5
+             ).to(torch.bfloat16)
+        g = torch.randn(n_out, co, generator=gen, device=device).to(torch.bfloat16)
+        store = torch.randn(n_in * ci + 1, generator=gen, device=device).to(torch.bfloat16)
+        for off in (0, 1):  # off 1: a contiguous view 2 bytes off the allocation's alignment
+            x = store[off:off + n_in * ci].view(n_in, ci)
+            what = f"adversarial {kind} {n_out}x{k} from {n_in}, {ci}->{co}, x offset {2 * off} B"
+            out = gather_gemm(x, nbr, w)
+            ref = plain.gather_conv(x, nbr, w)
+            scale = max(float(ref.abs().max()), 1e-6)
+            err = float((out - ref).abs().max())
+            if not err <= OUT_TOL * scale:
+                raise AssertionError(f"K1 {what}: error {err} above {OUT_TOL} x {scale}")
+            if not torch.equal(gather_gemm(x, nbr, w, out_dtype=torch.bfloat16),
+                               out.to(torch.bfloat16)):
+                raise AssertionError(f"K1 {what}: the bf16 result is not the f32 result cast")
+            dx, dw = gather_gemm_backward(x, g, adj, w)
+            rdx, rdw = plain.gather_conv_backward(x, g, adj, w)
+            dx_scale = max(float(rdx.abs().max()), 1e-6)
+            dx_err = float((dx - rdx).abs().max())
+            dw_norm = float(torch.linalg.vector_norm(rdw))
+            dw_rel = float(torch.linalg.vector_norm(dw - rdw)) / max(dw_norm, 1e-6)
+            if not (dx_err <= OUT_TOL * dx_scale and dw_rel <= DW_TOL):
+                raise AssertionError(f"K2 {what}: dX error {dx_err} (scale {dx_scale}), "
+                                     f"dW relative error {dw_rel}")
+            # the book read with its columns reversed, in place, against a flipped copy
+            flipped = adj.flip(1).contiguous()
+            rx, rw = gather_gemm_backward(x, g, flipped, w, reverse=True)
+            # dW sums each offset's pairs in the same order either way; dX adds the
+            # offsets in the other order, so it is held to the plain version
+            rx_err = float((rx - rdx).abs().max())
+            if not (rx_err <= OUT_TOL * dx_scale and torch.equal(rw, dw)):
+                raise AssertionError(f"K2 {what}: reverse=True differs from the flipped book "
+                                     f"(dX error {rx_err}, scale {dx_scale})")
+            if gather_gemm_backward(x, g, adj, w, need_dx=False)[0] is not None:
+                raise AssertionError(f"K2 {what}: dX returned although not needed")
+            worst = max(worst, err / scale, dx_err / dx_scale, dw_rel)
+    torch.cuda.synchronize()
+    log(f"adversarial: {len(cases)} books x 2 alignments of x, K1, K2 and the reversed reading "
+        f"against the plain versions; worst relative error {worst:.3e}")
 
 
 def stage2_kernel_phase(device) -> list:
@@ -616,6 +720,7 @@ def main() -> int:
 
     rates_phase(device)
     rows = kernel_phase(device) + stage2_kernel_phase(device)
+    adversarial_phase(device)
     reference_phase(device)
     part_rows, launches_parts = conv_parts_phase(device, card)
     launches_s1 = stage1_phase(device, gpu_name)
@@ -634,7 +739,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("launches_stage1", "launches_parts", "bound_measured_ms", "bound_dense_ms", "fill",
-             "ranks_plus_kernel_ms", "k3_ms")
+             "strips_kept", "pairs", "dw_only_ms", "ranks_plus_kernel_ms", "k3_ms")
     missing = [(r["name"], k) for r in rows for k in keys if k not in r]
     if missing:
         raise AssertionError(f"kernel rows lack keys: {missing}")

@@ -3,9 +3,10 @@
 Each `csrc/*.cu` file compiles in its own `nvcc` process, all started
 together, and one more `nvcc` call links the objects into one shared library
 with a plain C interface, `build/kernels/libgcdlss_kernels-<hash>.so` under
-the repository root. The hash covers the sources and the flags, so an edited
-source, or a deleted library, is rebuilt at the next first use; nothing falls
-back when the build fails. A C entry takes its pointers and the CUDA stream as
+the repository root. The hash covers the sources, the headers they include
+(`csrc/*.cuh`, `*.h`) and the flags, so an edited source or header, or a
+deleted library, is rebuilt at the next first use; nothing falls back when
+the build fails. A C entry takes its pointers and the CUDA stream as
 `c_void_p` and returns `cudaGetLastError()`; `check` turns a non-zero code
 into an exception.
 """
@@ -28,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "gcd_gather_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "gcd_gather_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gcd_gather_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "gcd_gather_dw_slices": (_I, _I, _I, _I),
+    "gcd_gather_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "gcd_cube_map": (_P, _P, _I, _I, _P),
     "gcd_cube_cand": (_P, _P, _P, _P, _P, _I, _I, _P),
     "gcd_window_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -51,7 +53,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(p for pattern in ("*.cu", "*.cuh", "*.h") for p in CSRC.glob(pattern))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

@@ -29,22 +29,46 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return rows * (idx >= 0).unsqueeze(-1).to(rows.dtype)
 
 
-def gather_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """out [N_out, Co] f32 = sum_k x[nbr[:, k]] @ W[k] (plain K1)."""
+def gather_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """out [N_out, Co] = sum_k x[nbr[:, k]] @ W[k] (plain K1): f32 sums,
+    returned as `out_dtype`."""
     wf = w.float()
     out = torch.zeros((nbr.shape[0], w.shape[2]), dtype=torch.float32, device=x.device)
     for k in range(nbr.shape[1]):
         out += _gather_rows(x, nbr[:, k]) @ wf[k]
-    return out
+    return out.to(out_dtype)
 
 
-def gather_conv_backward(x: torch.Tensor, g: torch.Tensor, adj: torch.Tensor,
-                         w: torch.Tensor):
-    """(dX [N_in, Ci], dW [K, Ci, Co]) in f32 over the adjoint book (plain K2)."""
-    dx = gather_conv(g, adj, w.transpose(1, 2))
+def gather_conv_backward(x: torch.Tensor, g: torch.Tensor, adj: torch.Tensor, w: torch.Tensor,
+                         out_dtype: torch.dtype = torch.float32, need_dx: bool = True):
+    """(dX [N_in, Ci] as `out_dtype`, or None unless `need_dx`; dW [K, Ci, Co]
+    f32) over the adjoint book (plain K2)."""
+    dx = gather_conv(g, adj, w.transpose(1, 2), out_dtype) if need_dx else None
     xf = x.float()
     dw = torch.stack([xf.T @ _gather_rows(g, adj[:, k]) for k in range(adj.shape[1])])
     return dx, dw
+
+
+def strips_kept_plain(nbr: torch.Tensor, rows: int = 16) -> torch.Tensor:
+    """What K1 visits: bool [ceil(N_out / rows), K], true where the strip of
+    `rows` consecutive output rows holds a present entry at that offset. The
+    kernel gathers and multiplies a (strip, offset) pair only where this is
+    true; everywhere else the sum gets nothing, as in `gather_conv`."""
+    n, k = nbr.shape
+    pad = -n % rows
+    present = torch.nn.functional.pad(nbr >= 0, (0, 0, 0, pad))
+    return present.view((n + pad) // rows, rows, k).any(dim=1)
+
+
+def compact_pairs_plain(adj: torch.Tensor, k: int, rows: slice = slice(None)):
+    """What dW visits at offset `k` within the row slice `rows`: the present
+    pairs (v, u = adj[v, k]) in the order of the rows v, as int64 tensors.
+    dW[k] is the sum over these pairs of outer(x[v], g[u])."""
+    start = rows.indices(adj.shape[0])[0]
+    col = adj[rows, k]
+    v = torch.nonzero(col >= 0).squeeze(1)
+    return v + start, col[v].long()
 
 
 def down_conv(x: torch.Tensor, parent: torch.Tensor, dcode: torch.Tensor,

@@ -24,6 +24,12 @@ sums, and runs on it
   - P4 `onehot_conv`: the conv with the gather as a one-hot product;
   - K1 `gather_gemm`: the whole.
 
+P3 and P4 keep the tile K1 had when they were written (a dense f32 FMA
+product over all 27 offsets on the CUDA cores): they record what that design
+cost. K1 itself now multiplies on the tensor cores and skips absent strips,
+so it runs under P3, and the table's last line ("left over") is negative by
+what that saves.
+
 Every mode is first held against its plain version on the same inputs (any
 mismatch exits non-zero), then timed with CUDA events: warm-up, `--reps`
 single launches, median and quartiles. Where one PyTorch call computes a
@@ -307,7 +313,7 @@ def summary(results: list, rows: int, channels: int, gpu: str) -> None:
              ("row gather (P2 dynamic, rolled)", ms["gather dynamic rolled"]),
              ("row gather (P2 dynamic, unrolled)", ms["gather dynamic unrolled"]),
              ("row loads without the index (P2 static, rolled)", ms["gather static rolled"]),
-             ("product (P3)", ms["product"])]
+             ("product, dense f32 FMA over all offsets (P3)", ms["product"])]
     if stage in ms:
         parts.append((f"staging (P1 rows, W {WINDOWS[0]}, 2 buffers)", ms[stage]))
     parts.append(("gather as a one-hot product, whole conv (P4)", ms["onehot"]))

@@ -17,8 +17,12 @@ on voxel buffers made once on the card, it prints:
     loss each), the teacher forward alone, and `plan_and_gather` per route;
   - one step under `torch.profiler`: the device time summed over the trace's
     kernel, memcpy and memset events, the busy time (their union) and the
-    idle share of the step's host wall time, and the kernels by device time.
-    The trace is written to `--trace`.
+    idle share of the step's host wall time, and the kernels by device time
+    (the port's own kernels summed over their template instances).
+    The trace is written to `--trace`;
+  - the Stage-1 step (`pretrain_train_step`, MinkUNet34, the labeled side's 2
+    scans, cap0 = 138,240): median of 5 after 2 warm-ups, peak memory, and one
+    step under the profiler, summarised the same way.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -66,8 +71,13 @@ def synthetic_sides(device):
     return sup, unsup
 
 
+OWN_KERNEL = re.compile(r"(gather_\w+|sum_slices_kernel|cube_\w+)")
+
+
 def device_summary(trace: Path, wall_ms: float) -> None:
-    """Sum the device events of a chrome trace; their union is the busy time."""
+    """Sum the device events of a chrome trace; their union is the busy time.
+    The port's kernels are listed by function, whatever their template
+    arguments."""
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     total = sum(e["dur"] for e in events) / 1e3
@@ -83,9 +93,11 @@ def device_summary(trace: Path, wall_ms: float) -> None:
         f"{1 - busy / wall_ms:.4f} of the wall")
     by_name = defaultdict(lambda: [0.0, 0])
     for e in events:
-        by_name[e["name"]][0] += e["dur"] / 1e3
-        by_name[e["name"]][1] += 1
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        own = OWN_KERNEL.search(e["name"])
+        name = own.group(1) if own else e["name"]
+        by_name[name][0] += e["dur"] / 1e3
+        by_name[name][1] += 1
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {ms:9.2f} ms {100 * ms / total:5.1f}%  n={n:5d}  {name[:90]}")
 
 
@@ -193,15 +205,38 @@ def main() -> int:
             f"{med_ms(lambda: plan_and_gather(cb, caps, pk)):.2f} ms")
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        td.discover_train_step(state, sup, unsup, cfgs[2])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    args.trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(args.trace))
-    device_summary(args.trace, wall)
+
+    def profiled(step, trace: Path) -> None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        device_summary(trace, wall)
+
+    log("Stage 2:")
+    profiled(lambda: td.discover_train_step(state, sup, unsup, cfgs[2]), args.trace)
+
+    from gcdlss_tpu_torch.train import pretrain as tp
+
+    del state, student, plan, mix_plan
+    pcfg = tp.PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
+                             voxel_caps=default_caps(cs.CAP0), arch="MinkUNet34",
+                             planes=DEFAULT_PLANES, dtype="bfloat16", steps_per_epoch=1000,
+                             epochs=50)
+    pstate = tp.create_pretrain_state(0, pcfg, device=dev)
+
+    def stage1_step():
+        float(tp.pretrain_train_step(pstate, sup, pcfg)[1]["loss"])
+
+    stage1_step()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"Stage 1: step median {med_ms(stage1_step):.1f} ms; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    profiled(stage1_step, args.trace.with_name("stage1_step_trace.json"))
     return 0
 
 

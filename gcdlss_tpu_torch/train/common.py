@@ -42,6 +42,18 @@ class TrainState:
     step: int = 0
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Raises when a CUDA device is asked for (the default) and there
+    is none: nothing runs on the CPU unless asked to."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was asked for (the default) but no CUDA device is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return device
+
+
 def voxel_batch_to_device(vb, device) -> dict:
     """VoxelBatchNp -> dict of tensors on `device`."""
     out = {

@@ -33,7 +33,7 @@ from ..losses import adaptive_threshold_loss, calibration_loss, cross_entropy, m
 from ..models.minkunet import (DEFAULT_PLANES, MinkUNetRC, assemble_dummy_logits,
                                assemble_novel_logits)
 from ..ops.plan import PLAN_KERNELS, build_unet_plan, plan_capacity_overflow
-from .common import make_sgd, plan_and_gather
+from .common import make_sgd, plan_and_gather, resolve_device
 from .lasermix import NUM_AREAS_CHOICES, lasermix_voxel_groups
 from .schedule import make_lr_schedule
 
@@ -137,14 +137,16 @@ def make_model(cfg: DiscoverConfig, generator: torch.Generator | None = None) ->
 
 
 def create_discover_state(seed: int, cfg: DiscoverConfig, pretrained: dict | None = None,
-                          device="cpu") -> DiscoverState:
+                          device="cuda") -> DiscoverState:
     """Student with weights drawn from `seed` (on the CPU, then moved), its
-    copy as the teacher, tau, SGD, an empty queue and the step's generator.
+    copy as the teacher, tau, SGD, an empty queue and the step's generator,
+    on the card unless `device` names another (`resolve_device`).
 
     `pretrained`: a Stage-1 `MinkUNetSeg` state dict; its backbone and
     `final` parameters warm-start the student (`utils.weights.warm_start`)."""
     from ..utils.weights import warm_start
 
+    device = resolve_device(device)
     student = make_model(cfg, torch.Generator().manual_seed(seed))
     if pretrained is not None:
         warm_start(student, pretrained)

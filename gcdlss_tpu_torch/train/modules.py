@@ -17,7 +17,8 @@ import torch
 
 from ..data import PrefetchLoader
 from ..eval.metrics import discovery_iou
-from .common import inv_label_lut, point_batch_to_device, voxel_batch_to_device
+from .common import (inv_label_lut, point_batch_to_device, resolve_device,
+                     voxel_batch_to_device)
 from .discover import (DiscoverConfig, create_discover_state, discover_eval_step,
                        discover_train_step)
 
@@ -31,10 +32,10 @@ class ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive:
     which waits for the card)."""
 
     def __init__(self, cfg: DiscoverConfig, label_mapping: dict, label_mapping_inv: dict,
-                 pretrained: dict | None = None, seed: int = 1234, device="cpu",
+                 pretrained: dict | None = None, seed: int = 1234, device="cuda",
                  label_dict: dict | None = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.label_dict = label_dict or {}  # train-label id -> class name
         self.known_real_labels = [k for k, v in label_mapping.items() if v != cfg.unknown_label]
         self.unknown_real_labels = [k for k, v in label_mapping.items()

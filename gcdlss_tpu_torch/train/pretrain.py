@@ -25,7 +25,7 @@ from ..losses import cross_entropy
 from ..models.minkunet import DEFAULT_PLANES, MinkUNetSeg
 from ..ops.plan import plan_capacity_overflow
 from .common import (TrainState, inv_label_lut, make_sgd, plan_and_gather,
-                     point_batch_to_device, voxel_batch_to_device)
+                     point_batch_to_device, resolve_device, voxel_batch_to_device)
 from .schedule import make_lr_schedule
 
 
@@ -55,8 +55,10 @@ def make_model(cfg: PretrainConfig, generator: torch.Generator | None = None) ->
                        generator=generator)
 
 
-def create_pretrain_state(seed: int, cfg: PretrainConfig, device="cpu") -> TrainState:
-    """Model with weights drawn from `seed` (on the CPU, then moved) and SGD."""
+def create_pretrain_state(seed: int, cfg: PretrainConfig, device="cuda") -> TrainState:
+    """Model with weights drawn from `seed` (on the CPU, then moved) and SGD,
+    on the card unless `device` names another (`resolve_device`)."""
+    device = resolve_device(device)
     model = make_model(cfg, torch.Generator().manual_seed(seed)).to(device)
     return TrainState(model=model, optimizer=make_sgd(cfg, model.parameters()))
 
@@ -116,9 +118,9 @@ class ExpPretrain:
     """
 
     def __init__(self, cfg: PretrainConfig, label_mapping: dict, label_mapping_inv: dict,
-                 seed: int = 1234, device="cpu"):
+                 seed: int = 1234, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.known_real_labels = [k for k, v in label_mapping.items() if v != cfg.unknown_label]
         self.inv_lut = torch.as_tensor(
             inv_label_lut(label_mapping_inv, cfg.num_labeled_classes), device=self.device)

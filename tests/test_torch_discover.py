@@ -214,7 +214,7 @@ def test_warm_start_from_stage1():
     statistics and the `final2`/`final3` heads stay as they were."""
     pcfg = PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
                           voxel_caps=CAPS, arch="MinkUNet14", planes=PLANES)
-    seg = create_pretrain_state(7, pcfg).model
+    seg = create_pretrain_state(7, pcfg, device="cpu").model
     with torch.no_grad():
         seg.encoder.bn0.running_mean.fill_(5.0)
     sd = seg.state_dict()
@@ -233,7 +233,7 @@ def test_warm_start_from_stage1():
             _eq(v, was[k], k)
         else:
             _eq(v, sd[k], k)
-    state = td.create_discover_state(1, cfg, pretrained=sd)
+    state = td.create_discover_state(1, cfg, pretrained=sd, device="cpu")
     for k, v in state.teacher.state_dict().items():
         _eq(v, got[k], k)
 
@@ -297,7 +297,7 @@ def setup(tmp_path_factory):
         jcommon.point_batch_to_device(val["points"]), jnp.asarray(lut), jcfg))
 
     # the port: the same initial state, batches and draws
-    tstate = td.create_discover_state(0, tcfg)
+    tstate = td.create_discover_state(0, tcfg, device="cpu")
     load_jax_discover_state(tstate, tree0)
     tb = [tcommon.voxel_batch_to_device(sup["voxel"], "cpu"),
           tcommon.voxel_batch_to_device(unsup["voxel"], "cpu")]
@@ -328,7 +328,7 @@ def test_minkunet_rc_forward_matches_jax(setup):
 
     jout, jdummy, jnovel = jfwd(s["tree0"]["params_s"], s["tree0"]["batch_stats_s"],
                                 jcommon.voxel_batch_to_device(vb))
-    state = td.create_discover_state(0, s["tcfg"])
+    state = td.create_discover_state(0, s["tcfg"], device="cpu")
     load_jax_discover_state(state, s["tree0"])
     state.student.eval()
     with torch.no_grad():
@@ -398,7 +398,8 @@ def test_exp_module_epoch_and_validate(setup):
     """The host loop through the port's datasets and loaders, with K4 maps."""
     s = setup
     cfg = dataclasses.replace(s["tcfg"], plan_kernel=1)
-    exp = ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(cfg, s["mapping"], s["inv"], seed=0)
+    exp = ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(cfg, s["mapping"], s["inv"], seed=0,
+                                                         device="cpu")
     lab, unlab = exp.make_loaders(s["lab_ds"], s["unlab_ds"], num_workers=1)
     tm = exp.train_epoch(lab, unlab)
     assert len(exp.step_log) == 1 and np.isfinite(tm["loss"])

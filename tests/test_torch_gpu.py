@@ -72,6 +72,71 @@ def test_gather_gemm_matches_plain(plan, ci, co, kind):
     _close(dw, rdw)
 
 
+@pytest.mark.parametrize("ci,co,k,n_out,n_in,off", [
+    (1, 20, 27, 4099, 4099, 0), (4, 32, 8, 4100, 6001, 0), (24, 256, 27, 5000, 5000, 0),
+    (48, 96, 27, 4097, 4097, 1), (192, 32, 8, 6001, 4100, 0), (384, 256, 27, 4111, 4111, 1),
+    (96, 96, 125, 4096, 4096, 0)])
+def test_gather_gemm_ragged_shapes_and_misaligned_x(plan, ci, co, k, n_out, n_in, off):
+    """Widths that are no multiple of 8, row counts that are no multiple of
+    any tile, N_in != N_out, books without locality with empty strips and
+    empty offsets, and an x that starts 2 bytes off a 16-byte boundary: served,
+    in f32 and bf16, with dX skipped on request, the same bits on every run."""
+    dev = plan.stem_nbr.device
+    g = torch.Generator(device="cuda").manual_seed(ci * 1000 + co)
+
+    def book(rows, limit):
+        nbr = torch.randint(0, limit, (rows, k), device=dev, generator=g, dtype=torch.int32)
+        keep = torch.rand((rows, k), device=dev, generator=g) < 0.2
+        keep[rows // 3:rows // 2] = False
+        keep[:, ::3] = False
+        return torch.where(keep, nbr, -1)
+
+    nbr, adj = book(n_out, n_in), book(n_in, n_out)
+    store = torch.randn(n_in * ci + 1, device=dev, generator=g).bfloat16()
+    x = store[off:off + n_in * ci].view(n_in, ci)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2 * off
+    w = torch.randn(k, ci, co, device=dev, generator=g).mul(0.1).bfloat16()
+    cot = torch.randn(n_out, co, device=dev, generator=g).bfloat16()
+    out = gather_gemm(x, nbr, w)
+    _close(out, plain.gather_conv(x, nbr, w))
+    assert torch.equal(gather_gemm(x, nbr, w, out_dtype=torch.bfloat16), out.bfloat16())
+    dx, dw = gather_gemm_backward(x, cot, adj, w)
+    rdx, rdw = plain.gather_conv_backward(x, cot, adj, w)
+    _close(dx, rdx)
+    _close(dw, rdw)
+    again = gather_gemm_backward(x, cot, adj, w)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    none, dw_only = gather_gemm_backward(x, cot, adj, w, need_dx=False)
+    assert none is None and torch.equal(dw_only, dw)
+    rx, rw = gather_gemm_backward(x, cot, adj.flip(1).contiguous(), w, reverse=True,
+                                  out_dtype=torch.bfloat16)
+    # bf16 result, offsets added in the other order: one bf16 place of the scale
+    torch.testing.assert_close(rx.float(), rdx, rtol=0, atol=2 ** -7 * float(rdx.abs().max()))
+    assert torch.equal(rw, dw)
+
+
+@pytest.mark.parametrize("kind", ["absent", "full"])
+def test_gather_gemm_all_absent_and_full_books(plan, kind):
+    dev = plan.stem_nbr.device
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n, k, ci, co = 4113, 27, 64, 48
+    if kind == "absent":
+        nbr = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    else:
+        nbr = torch.randint(0, n, (n, k), device=dev, generator=g, dtype=torch.int32)
+    x = torch.randn(n, ci, device=dev, generator=g).bfloat16()
+    w = torch.randn(k, ci, co, device=dev, generator=g).mul(0.1).bfloat16()
+    cot = torch.randn(n, co, device=dev, generator=g).bfloat16()
+    out = gather_gemm(x, nbr, w)
+    _close(out, plain.gather_conv(x, nbr, w))
+    dx, dw = gather_gemm_backward(x, cot, nbr, w)
+    rdx, rdw = plain.gather_conv_backward(x, cot, nbr, w)
+    _close(dx, rdx)
+    _close(dw, rdw)
+    if kind == "absent":
+        assert not out.any() and not dx.any() and not dw.any()
+
+
 def test_wrappers_reject_wrong_inputs(plan):
     nbr = plan.levels[1].nbr3
     x = torch.zeros(nbr.shape[0], 8, device=nbr.device, dtype=torch.bfloat16)
@@ -82,6 +147,8 @@ def test_wrappers_reject_wrong_inputs(plan):
         gather_gemm(x, nbr, w[:, :4])
     with pytest.raises(ValueError):
         gather_gemm(x.t(), nbr, w)
+    with pytest.raises(TypeError):
+        gather_gemm(x, nbr, w, out_dtype=torch.float16)
 
 
 @pytest.mark.parametrize("lvl,k1", [(0, 5), (0, 3), (1, 3), (3, 3)])

@@ -83,7 +83,8 @@ def test_port_sources_name_no_jax_package():
 
 
 @pytest.mark.parametrize("module", ["gcdlss_tpu_torch.tools.conv_parts",
-                                    "gcdlss_tpu_torch.tools.stage2_split"])
+                                    "gcdlss_tpu_torch.tools.stage2_split",
+                                    "gcdlss_tpu_torch.tools.strip_occupancy"])
 def test_tools_fail_without_cuda(module):
     """An entry point of the port raises without a CUDA device unless it was
     asked for the CPU."""

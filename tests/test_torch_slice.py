@@ -57,7 +57,7 @@ def setup(tmp_path_factory):
 
 
 def _port_state(s):
-    state = tpt.create_pretrain_state(0, s["tcfg"])
+    state = tpt.create_pretrain_state(0, s["tcfg"], device="cpu")
     load_jax_params(state.model, s["params"], s["stats"])
     return state
 
@@ -128,7 +128,7 @@ def test_reference_state_dict_loader(setup):
     s = setup
     params, stats = s["params"], s["stats"]
     sd = export_minkunet(params, stats, prefix="model.")
-    state = tpt.create_pretrain_state(1, s["tcfg"])
+    state = tpt.create_pretrain_state(1, s["tcfg"], device="cpu")
     missing = load_reference_state_dict(state.model, sd, prefix="model.")
     assert missing == []
     expect = jax_to_state_dict(params, stats)
@@ -139,7 +139,7 @@ def test_reference_state_dict_loader(setup):
 def test_exp_pretrain_epoch_and_validate(setup):
     """The host loop (`ExpPretrain`) through the repository's loader."""
     s = setup
-    exp = tpt.ExpPretrain(s["tcfg"], s["mapping"], s["inv"], seed=0)
+    exp = tpt.ExpPretrain(s["tcfg"], s["mapping"], s["inv"], seed=0, device="cpu")
     loss = exp.train_epoch(PrefetchLoader(s["train_ds"], 2, CAPS[0], num_workers=1, seed=0))
     assert np.isfinite(loss) and len(exp.step_log) == 1
     assert exp.step_log[0]["plan_overflow"] >= 0
