@@ -14,23 +14,30 @@ Phases, each of which raises on failure:
      backward (K2), on CUDA tensors at the Stage-1 path's shapes (2 synthetic
      80k-point scans at 0.05 m voxels, cap0 = 138,240), each held against its
      plain PyTorch version on the same bf16-rounded inputs and timed beside it
-     with CUDA events; K1's bf16 result must equal its f32 result cast, and
-     two runs of K2 must give the same bits;
+     with CUDA events; every K3 map of the plan (L0 k5, L0 k3, L1-L4 k3) bit
+     for bit against the join path, two runs the same bits; K1's bf16 result
+     must equal its f32 result cast, and two runs of K2 must give the same
+     bits;
   3. Stage-2 kernels: the rank-based neighbor map K4 (`plan_kernel=1`) at
      the Stage-2 path's shapes (2 labeled + 2 unlabeled scans, cap0 =
      276,480), at L0 k5, L0 k3 and L1 k3, against its plain version, K3 and
      the join path, bit for bit, and timed beside K3 and the plain version;
-     then K1/K2 at that plan's convs, as in phase 2; then K1/K2 on books
-     no plan makes (random, all absent, full, ragged row counts and widths,
-     N_in != N_out, a misaligned x) against their plain versions;
+     K3 at every map of that plan as in phase 2; then K1/K2 at that plan's
+     convs; then K1/K2 on books no plan makes (random, all absent, full,
+     ragged row counts and widths, N_in != N_out, a misaligned x) and K3 on
+     levels no scan makes (voxels on the faces and corners of the coordinate
+     field, no voxel, one voxel, a full cube, long z runs, four equal batches,
+     a level cut at its capacity; k1 = 3, 5, 7) against their plain versions;
   4. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
      on the card (kernels) and on the CPU (plain versions) with the same
      weights, relative error <= REF_TOL;
   5. conv parts: the component kernels P1-P4 of `ops/conv_parts.py` (window
      staging, gather, product, one-hot conv) and K1, every mode of
      `tools/conv_parts.py`, against their plain versions at the tool's two
-     configurations (262,144 rows x 96 channels; 131,072 x 256); then the
-     tool's own `main` at 262,144 x 96, every mode once;
+     configurations (262,144 rows x 96 channels; 131,072 x 256); P3 again at
+     ragged shapes (N 1 .. 4,097, K 1, 2, 8, 27, Ci 8 .. 256, Co 20, 96, 256),
+     two runs the same bits; then the tool's own `main` at 262,144 x 96,
+     every mode once;
   6. Stage-1 slice: `ExpPretrain` with MinkUNet34 in bf16, 3 steps at batch 2
      through the port's `SemanticKITTIDataset` and `PrefetchLoader`
      (per-scan seeds: the same batches, so the same losses, on every run),
@@ -155,11 +162,118 @@ def voxel_batch(rng, device, sides: int = 1):
     return torch.as_tensor(coords, device=device), torch.as_tensor(valid, device=device)
 
 
+def cube_map_rows(plan, tag: str) -> list:
+    """K3 at every map of `plan` (L0 k5, L0 k3, L1-L4 k3): bit for bit
+    against the join path, two launches the same bits, and its time (the
+    wrapper's: checks, allocation and launch) beside the join path's and its
+    bound, the map's and the keys' bytes once. `launch_only_ms` is the C
+    entry called in a loop on a map allocated once: what the card takes when
+    the host does not hold it back (the small maps are shorter than the
+    wrapper's own work on the host)."""
+    import torch
+
+    from gcdlss_tpu_torch.ops import _build
+    from gcdlss_tpu_torch.ops.plan import join_neighbor_map
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
+
+    rows = []
+    entry = _build.library().gcd_cube_map
+    stream = torch.cuda.current_stream(plan.stem_nbr.device).cuda_stream
+    for lev, lv in enumerate(plan.levels):
+        for k1 in ((5, 3) if lev == 0 else (3,)):
+            got = cube_neighbor_map(lv.key_hi, lv.key_lo, k1)
+            ref = join_neighbor_map(lv.key_hi, lv.key_lo, k1)
+            mism = int((got != ref).sum())
+            if not torch.equal(got, cube_neighbor_map(lv.key_hi, lv.key_lo, k1)):
+                raise AssertionError(f"K3 {tag} L{lev} k{k1}: two launches differ")
+            if k1 == 5 and not torch.equal(got, plan.stem_nbr):
+                raise AssertionError(f"K3 {tag}: the plan's stem map differs from a fresh launch")
+            ms = cuda_time_ms(lambda: cube_neighbor_map(lv.key_hi, lv.key_lo, k1), reps=20)
+            pms = cuda_time_ms(lambda: join_neighbor_map(lv.key_hi, lv.key_lo, k1))
+            kms = cuda_time_ms(lambda: _build.check(entry(
+                lv.key_hi.data_ptr(), lv.key_lo.data_ptr(), got.data_ptr(), got.shape[0], k1,
+                stream), "gcd_cube_map"), reps=100)
+            b = bound(nbytes(lv.key_hi, lv.key_lo, got), 0)
+            rows.append(dict(name=f"K3 cube_map {tag} L{lev} k{k1}", route="cuda",
+                             source="gcdlss_tpu_torch/csrc/cube_map.cu",
+                             replaces="gcdlss_tpu/ops/plan_kernel.py:378",
+                             max_abs_err=float(mism), ms=ms, plain_ms=pms, launch_only_ms=kms,
+                             **b))
+            log(f"K3 {tag} L{lev} k{k1}: cap {lv.key_hi.shape[0]} mismatches {mism} | kernel "
+                f"{ms:.4f} ms (launch only {kms:.4f}), plain {pms:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms")
+            if mism:
+                raise AssertionError(f"K3 {tag} L{lev} k{k1}: {mism} entries differ from the join path")
+    return rows
+
+
+def cube_map_adversarial_phase(device) -> None:
+    """K3 against the join path and the per-row rule it is built on
+    (`cube_direct_rule`, evaluated on the CPU) on the levels of
+    `utils.adversarial.neighbor_map_levels`, k1 = 3, 5, 7, bit for bit, two
+    launches the same bits."""
+    import torch
+
+    from gcdlss_tpu_torch.ops.coords import encode_coords, sorted_unique
+    from gcdlss_tpu_torch.ops.plan import join_neighbor_map
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_direct_rule, cube_neighbor_map
+    from gcdlss_tpu_torch.utils.adversarial import neighbor_map_levels
+
+    levels = neighbor_map_levels()
+    for name, (coords, cap) in levels.items():
+        c = torch.as_tensor(coords, device=device)
+        hi, lo = encode_coords(c, torch.ones(len(c), dtype=torch.bool, device=device))
+        (kh, kl), _, _, _ = sorted_unique(hi, lo, cap)
+        for k1 in (3, 5, 7):
+            got = cube_neighbor_map(kh, kl, k1)
+            again = cube_neighbor_map(kh, kl, k1)
+            ref = join_neighbor_map(kh, kl, k1)
+            mism = int((got != ref).sum())
+            if mism or not torch.equal(got, again):
+                raise AssertionError(f"K3 adversarial {name} k{k1}: {mism} entries differ from the "
+                                     f"join path, two launches equal: {torch.equal(got, again)}")
+            if k1 < 7 and not torch.equal(got.cpu(), cube_direct_rule(kh.cpu(), kl.cpu(), k1)):
+                raise AssertionError(f"K3 adversarial {name} k{k1}: differs from the per-row rule")
+    torch.cuda.synchronize()
+    log(f"K3 adversarial: {len(levels)} levels ({', '.join(levels)}) x k1 3, 5, 7 bit-equal to "
+        f"the join path, two launches each")
+
+
+def tile_gemm_ragged_phase(device) -> None:
+    """P3 against its plain version at `utils.adversarial.TILE_GEMM_SHAPES`
+    and at the tool's two full-width shapes, within the tool's tolerance, two
+    launches the same bits."""
+    import torch
+
+    from gcdlss_tpu_torch.ops.conv_parts import tile_gemm, tile_gemm_plain
+    from gcdlss_tpu_torch.tools.conv_parts import DEFAULT_CONFIGS, K, TOL
+    from gcdlss_tpu_torch.utils.adversarial import TILE_GEMM_SHAPES
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    worst = 0.0
+    shapes = TILE_GEMM_SHAPES + tuple((n, K, c, c) for n, c, _ in DEFAULT_CONFIGS)
+    for n, k, ci, co in shapes:
+        x = torch.randn(n, ci, generator=gen, device=device).to(torch.bfloat16)
+        w = (torch.randn(k, ci, co, generator=gen, device=device) * (2.0 / (k * ci)) ** 0.5
+             ).to(torch.bfloat16)
+        out = tile_gemm(x, w)
+        ref = tile_gemm_plain(x, w)
+        scale = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        if not err <= TOL["P3"] * scale:
+            raise AssertionError(f"P3 N {n} K {k} {ci}->{co}: error {err} above {TOL['P3']} x {scale}")
+        if not torch.equal(out, tile_gemm(x, w)):
+            raise AssertionError(f"P3 N {n} K {k} {ci}->{co}: two launches differ")
+        worst = max(worst, err / scale)
+    torch.cuda.synchronize()
+    log(f"P3 ragged: {len(shapes)} shapes (N, K, Ci, Co) against the plain version, two "
+        f"launches each; worst relative error {worst:.3e}")
+
+
 def kernel_phase(device) -> list:
     import torch
 
-    from gcdlss_tpu_torch.ops.plan import build_unet_plan, join_neighbor_map
-    from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
+    from gcdlss_tpu_torch.ops.plan import build_unet_plan
     from gcdlss_tpu_torch.train.common import default_caps
 
     rng = np.random.default_rng(0)
@@ -169,29 +283,8 @@ def kernel_phase(device) -> list:
     torch.cuda.synchronize()
     log(f"plan: caps {caps}, valid rows per level "
         f"{[int(lv.valid.sum()) for lv in plan.levels]}")
-    rows = []
 
-    # K3: every map of the plan against the join path, bit for bit
-    for lev, lv in enumerate(plan.levels):
-        for k1 in ((5, 3) if lev == 0 else (3,)):
-            got = cube_neighbor_map(lv.key_hi, lv.key_lo, k1)
-            ref = join_neighbor_map(lv.key_hi, lv.key_lo, k1)
-            mism = int((got != ref).sum())
-            if lev == 0 and k1 == 5 and not torch.equal(got, plan.stem_nbr):
-                raise AssertionError("K3: plan stem map differs from a fresh launch")
-            line = f"K3 L{lev} k{k1}: cap {lv.key_hi.shape[0]} mismatches {mism}"
-            if lev <= 1:
-                ms = cuda_time_ms(lambda: cube_neighbor_map(lv.key_hi, lv.key_lo, k1))
-                pms = cuda_time_ms(lambda: join_neighbor_map(lv.key_hi, lv.key_lo, k1))
-                rows.append(dict(name=f"K3 cube_map L{lev} k{k1}", route="cuda",
-                                 source="gcdlss_tpu_torch/csrc/cube_map.cu",
-                                 replaces="gcdlss_tpu/ops/plan_kernel.py:378",
-                                 max_abs_err=float(mism), ms=ms, plain_ms=pms,
-                                 **bound(nbytes(lv.key_hi, lv.key_lo, got), 0)))
-                line += f" | kernel {ms:.3f} ms, plain {pms:.3f} ms"
-            log(line)
-            if mism:
-                raise AssertionError(f"K3 L{lev} k{k1}: {mism} entries differ from the join path")
+    rows = cube_map_rows(plan, "stage1")
     return rows + gemm_phase(plan, device, "stage1")
 
 
@@ -413,7 +506,7 @@ def stage2_kernel_phase(device) -> list:
                          max_abs_err=float(mism["plain"]), ms=ms, plain_ms=pms,
                          ranks_plus_kernel_ms=rms, k3_ms=k3ms,
                          **bound(nbytes(kh, kl, p, has, got), 0)))
-    return rows + gemm_phase(plan, device, "stage2")
+    return rows + cube_map_rows(plan, "stage2") + gemm_phase(plan, device, "stage2")
 
 
 def reference_phase(device) -> None:
@@ -490,6 +583,7 @@ def conv_parts_phase(device, card: str):
                                  plain_ms=r["plain_ms"], **bound(r["min_bytes"], r["flops"]))
                             | {"library_ms": r["library_ms"]})
 
+    tile_gemm_ragged_phase(device)
     kernels = part_kernels()
     out = ROOT / "build" / "conv_parts.json"
     for fn in kernels.values():
@@ -721,6 +815,7 @@ def main() -> int:
     rates_phase(device)
     rows = kernel_phase(device) + stage2_kernel_phase(device)
     adversarial_phase(device)
+    cube_map_adversarial_phase(device)
     reference_phase(device)
     part_rows, launches_parts = conv_parts_phase(device, card)
     launches_s1 = stage1_phase(device, gpu_name)

@@ -32,11 +32,12 @@ SIGNATURES = {
     "gcd_gather_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "gcd_gather_dw_slices": (_I, _I, _I, _I),
     "gcd_gather_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "gcd_cube_map": (_P, _P, _I, _I, _P),
+    "gcd_cube_map": (_P, _P, _P, _I, _I, _P),
     "gcd_cube_cand": (_P, _P, _P, _P, _P, _I, _I, _P),
     "gcd_window_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "gcd_gather_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "gcd_tile_gemm": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "gcd_tile_gemm_scratch": (_I, _I, _I),
+    "gcd_tile_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gcd_onehot_conv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 

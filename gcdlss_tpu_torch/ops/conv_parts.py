@@ -14,7 +14,8 @@ be held to a plain version:
                     out[i, c] = sum_{r < window} x[ws[i] + r, c]
   P2 `gather_sum`   the gather without the product:
                     out[u, c] = sum_k [nbr[u, k] >= 0] x[nbr[u, k], c]
-  P3 `tile_gemm`    the product without the gather:
+  P3 `tile_gemm`    the product without the gather, on the tensor cores
+                    (`wgmma`), x staged once per block of rows:
                     out[u] = sum_k x[clip(u + k - K // 2, 0, N - 1)] @ W[k]
   P4 `onehot_conv`  the conv itself with the gather done as a product,
                     G = onehot(rel) @ sub over a staged sub-window per (row
@@ -201,22 +202,57 @@ def tile_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+TILE_GEMM_ROWS = 256  # P3: output rows per block
+TILE_GEMM_SMEM = 232_448  # bytes of shared memory a block may use on sm_90
+
+
+def tile_gemm_fits(k: int, ci: int, co: int) -> bool:
+    """Whether P3's kernel serves (K, Ci, Co): the window of
+    `TILE_GEMM_ROWS` + K - 1 rows of Ci channels (padded to a multiple of 16,
+    plus 16 bytes a row) and three ring stages of 64 x (96 or 128) weights must
+    fit into a block's shared memory. The C entry applies the same rule."""
+    ci_pad = -(-ci // 16) * 16
+    window = (TILE_GEMM_ROWS + k - 1) * (ci_pad + 8) * 2
+    stage = (96 if co <= 96 else 128) * 64 * 2
+    s16 = ci_pad // 16  # the channels go through in chunks of 64, 48, 32 or 16
+    steps = next(d for d in (4, 3, 2, 1) if s16 % d == 0)
+    return window + 3 * stage + 1024 <= TILE_GEMM_SMEM and s16 // steps <= 16
+
+
 def tile_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """P3: out [N, Co] f32 = sum_k x[clip(u + k - K // 2, 0, N - 1)] @ w[k]:
-    K1's tiling and arithmetic on rows read at fixed shifts, with contiguous
-    16-byte loads and no book. x [N, Ci], w [K, Ci, Co]."""
+    """P3: out [N, Co] f32 = sum_k x[clip(u + k - K // 2, 0, N - 1)] @ w[k],
+    x [N, Ci] bf16, w [K, Ci, Co] bf16, Ci a multiple of 8; any N >= 1, any K
+    (odd or even), any Co.
+
+    On the card: `wgmma` on a window of x staged once per block of
+    `TILE_GEMM_ROWS` rows (`csrc/conv_parts.cu`). Refused there, with the
+    reason: an x that is not 16-byte aligned, and a (K, Ci) whose window does
+    not fit into shared memory (`tile_gemm_fits`; Ci = 256 fits up to K = 90,
+    Ci = 384 at no K)."""
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1] or w.shape[1] % 8 \
+            or x.shape[0] < 1 or w.shape[0] < 1 or w.shape[2] < 1:
+        raise ValueError(f"tile_gemm: x {tuple(x.shape)}, w {tuple(w.shape)} do not agree, "
+                         "are empty, or Ci is not a multiple of 8")
     if x.device.type == "cpu":
         return tile_gemm_plain(x, w)
     dev = _cuda_device(x, "tile_gemm")
     _check(x, "x", torch.bfloat16, 2, dev)
     _check(w, "w", torch.bfloat16, 3, dev)
     k, ci, co = w.shape
-    if x.shape[1] != ci or ci % 8:
-        raise ValueError(f"tile_gemm: x {tuple(x.shape)}, w {tuple(w.shape)} do not agree, "
-                         "or Ci is not a multiple of 8")
+    if not tile_gemm_fits(k, ci, co):
+        raise ValueError(f"tile_gemm: a window of {TILE_GEMM_ROWS} + K - 1 = "
+                         f"{TILE_GEMM_ROWS + k - 1} rows of {ci} channels does not fit into "
+                         f"{TILE_GEMM_SMEM} bytes of shared memory beside three stages of W")
+    if x.data_ptr() % 16:
+        raise ValueError("tile_gemm: x must be 16-byte aligned")
+    lib = _build.library()
+    scratch = lib.gcd_tile_gemm_scratch(k, ci, co)
+    if scratch < 0:
+        raise ValueError(f"tile_gemm: the kernel refuses K {k}, Ci {ci}, Co {co}")
+    wimg = torch.empty(scratch, dtype=torch.bfloat16, device=dev)  # W as wgmma reads it
     out = torch.empty((x.shape[0], co), dtype=torch.float32, device=dev)
-    rc = _build.library().gcd_tile_gemm(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], k, ci, co,
+    rc = lib.gcd_tile_gemm(
+        x.data_ptr(), w.data_ptr(), wimg.data_ptr(), out.data_ptr(), x.shape[0], k, ci, co,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tile_gemm")
     tile_gemm.launches += 1

@@ -13,8 +13,9 @@ them. Topology (MinkUNet, reference `models/minkunet.py:59-132`):
 k^3 maps go through one of two kernels, chosen by the `plan_kernel` argument
 (the JAX package's `GCDLSS_PLAN_KERNEL` modes 2 and 1):
 
-  * 2 (default): `plan_kernel.cube_neighbor_map` (K3), a binary search per
-    (row, offset); its plain version is `join_neighbor_map` below;
+  * 2 (default): `plan_kernel.cube_neighbor_map` (K3), which takes the keys
+    as they are and writes every row whole in one launch (one search per
+    (row, (dx, dy) column)); its plain version is `join_neighbor_map` below;
   * 1: `_column_ranks` (one insertion rank per row and non-center (dx, dy)
     column) feeding `plan_kernel.cube_candidates_map` (K4), which reads the
     <= k consecutive candidate rows at each rank.
@@ -37,7 +38,7 @@ from .coords import (FIELD, SENTINEL_HI, SENTINEL_LO, decode_keys, encode_coords
 from .join import sorted_join, sorted_rank_match
 from .plan_kernel import cube_candidates_map, cube_neighbor_map
 
-PLAN_KERNELS = (1, 2)  # K4 (rank + candidates), K3 (binary search)
+PLAN_KERNELS = (1, 2)  # K4 (ranks, then candidates), K3 (the search inside the kernel)
 
 
 def _offsets(k: int) -> np.ndarray:

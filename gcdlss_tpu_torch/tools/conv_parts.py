@@ -24,19 +24,20 @@ sums, and runs on it
   - P4 `onehot_conv`: the conv with the gather as a one-hot product;
   - K1 `gather_gemm`: the whole.
 
-P3 and P4 keep the tile K1 had when they were written (a dense f32 FMA
-product over all 27 offsets on the CUDA cores): they record what that design
-cost. K1 itself now multiplies on the tensor cores and skips absent strips,
-so it runs under P3, and the table's last line ("left over") is negative by
-what that saves.
+P3 multiplies as K1 does, on the tensor cores, but every offset of every row:
+K1 skips the (strip of 16 rows, offset) pairs that hold no entry. So the table
+prints beside K1 the product at K1's work, P3 times the share of strips K1
+keeps (`ops/conv.strips_kept_plain`), and what is left over of K1 after that
+and the row gather. P4 keeps the f32 FMA tile K1 had when it was written and
+records what that design cost.
 
 Every mode is first held against its plain version on the same inputs (any
 mismatch exits non-zero), then timed with CUDA events: warm-up, `--reps`
 single launches, median and quartiles. Where one PyTorch call computes a
 mode's function (P2 dynamic: `embedding_bag` with absent entries as its
-padding index; P2 static: `mul`; the index sum: `sum`; P3: `conv2d` along the
-rows), that call is held to the plain version and timed too (`library_ms`): a
-yardstick, used nowhere in the port. One JSON line per mode, then a table of the parts beside
+padding index; P2 static: `mul` into f32, as P2 writes; the index sum: `sum`;
+P3: `conv2d` along the rows), that call is held to the plain version and timed
+too (`library_ms`): a yardstick, used nowhere in the port. One JSON line per mode, then a table of the parts beside
 K1. Without arguments it runs two configurations:
 262,144 rows x 96 channels at 0.05 m voxels (the level-0 geometry), and
 131,072 rows x 256 channels at 0.4 m voxels (stride 8: the level-3 geometry
@@ -61,7 +62,7 @@ import torch
 from ..data.quantize_np import sparse_quantize_np
 from ..data.synthetic import synth_scan_points
 from ..ops import conv_parts as cp
-from ..ops.conv import gather_conv
+from ..ops.conv import gather_conv, strips_kept_plain
 from ..ops.fused_conv import gather_gemm
 from ..ops.plan import build_unet_plan
 from ..utils.roofline import bound_ms
@@ -184,15 +185,17 @@ def modes(x, w, nbr, rows: int, channels: int) -> list:
           ("static", True): f"{t3} (static_all, unrolled)",
           ("index_only", False): f"tools/scaffold_bisect_bench.py:45 (rel); {t3} (static_gst)",
           ("index_only", True): "tools/scaffold_bisect_bench.py:45 (rel, unrolled)"}
-    # the library's yardsticks (bf16 out). dynamic: each row of the book is a
+    # the library's yardsticks. dynamic (bf16 out): each row of the book is a
     # bag of `embedding_bag`, an absent entry its padding index N, which
-    # points at a zero row appended to x; static: K * x; index_only: a row sum
+    # points at a zero row appended to x; static: K * x written as f32, the
+    # same function as P2's; index_only: a row sum
     nbr_bag = torch.where(nbr < 0, rows, nbr)
     x_bag = torch.cat([x, x.new_zeros(1, channels)])
+    static_out = torch.empty((rows, channels), dtype=torch.float32, device=dev)
     p2_library = {
         "dynamic": (lambda: torch.nn.functional.embedding_bag(
             nbr_bag, x_bag, mode="sum", padding_idx=rows), lambda t: t),
-        "static": (lambda: torch.mul(x, K), lambda t: t),
+        "static": (lambda: torch.mul(x, K, out=static_out), lambda t: t),
         "index_only": (lambda: nbr.sum(1, dtype=torch.int32), lambda t: t[:, None])}
     for (index, unroll), tool in p2.items():
         read = {"dynamic": xb + nb_bytes + ob, "static": xb + ob,
@@ -251,8 +254,10 @@ def run_config(device, rows: int, channels: int, voxel_size: float, reps: int, s
     far = int(cp.onehot_conv(x, nbr, w)[1])
     far_plain = int(cp.onehot_far_plain(nbr))
     entries = int((nbr >= 0).sum())
+    kept = float(strips_kept_plain(nbr).float().mean())
     log(f"config: rows {rows} channels {channels} voxel {voxel_size} m, {scans} scans, valid "
-        f"{int(valid.sum())}, fill {fill:.4f} ({entries} entries); onehot: {far} entries "
+        f"{int(valid.sum())}, fill {fill:.4f} ({entries} entries), strips of 16 rows kept "
+        f"{kept:.4f}; onehot: {far} entries "
         f"({far / max(entries, 1):.4f}) outside their sub-window, gathered directly")
     if far != far_plain:
         raise SystemExit(f"conv_parts: onehot far count {far} differs from the plain {far_plain}")
@@ -287,7 +292,8 @@ def run_config(device, rows: int, channels: int, voxel_size: float, reps: int, s
             plain_ms[pkey] = statistics.median(time_ms(m["plain"], 3, on_cuda))
         bound, bound_by = bound_ms(m["min_bytes"], m["flops"])
         row = dict(mode=m["mode"], kernel=m["kernel"], part=m["part"], tpu_tool=m["tpu_tool"],
-                   rows=rows, channels=channels, k=K, fill=fill, ms=med, ms_q1=q1, ms_q3=q3,
+                   rows=rows, channels=channels, k=K, fill=fill, strips_kept=kept, ms=med,
+                   ms_q1=q1, ms_q3=q3,
                    reps=reps, plain_ms=plain_ms[pkey], library_ms=library_ms, bytes=m["bytes"],
                    min_bytes=m["min_bytes"], flops=m["flops"],
                    gb_per_s=m["bytes"] / med / 1e6, tflop_per_s=m["flops"] / med / 1e9,
@@ -300,12 +306,13 @@ def run_config(device, rows: int, channels: int, voxel_size: float, reps: int, s
             row["far_entries"] = far
         results.append(row)
         log(json.dumps(row))
-    summary(results, rows, channels, gpu)
+    summary(results, rows, channels, gpu, kept)
     return results
 
 
-def summary(results: list, rows: int, channels: int, gpu: str) -> None:
-    """The parts beside the whole K1 on the same plan."""
+def summary(results: list, rows: int, channels: int, gpu: str, kept: float) -> None:
+    """The parts beside the whole K1 on the same plan; `kept` is the share of
+    (strip of 16 rows, offset) pairs K1 multiplies."""
     ms = {r["mode"]: r["ms"] for r in results}
     full = ms["full"]
     stage = f"stage rows W{WINDOWS[0]} sequential buffers 2"
@@ -313,7 +320,8 @@ def summary(results: list, rows: int, channels: int, gpu: str) -> None:
              ("row gather (P2 dynamic, rolled)", ms["gather dynamic rolled"]),
              ("row gather (P2 dynamic, unrolled)", ms["gather dynamic unrolled"]),
              ("row loads without the index (P2 static, rolled)", ms["gather static rolled"]),
-             ("product, dense f32 FMA over all offsets (P3)", ms["product"])]
+             ("product over all offsets, tensor cores (P3)", ms["product"]),
+             (f"product at K1's work (P3 x strips kept {kept:.3f})", ms["product"] * kept)]
     if stage in ms:
         parts.append((f"staging (P1 rows, W {WINDOWS[0]}, 2 buffers)", ms[stage]))
     parts.append(("gather as a one-hot product, whole conv (P4)", ms["onehot"]))
@@ -323,12 +331,12 @@ def summary(results: list, rows: int, channels: int, gpu: str) -> None:
                        ("product by the library (conv2d, bf16 out)", "product")):
         if library[mode] is not None:
             parts.append((name, library[mode]))
-    left = full - ms["gather dynamic rolled"] - ms["product"]
+    left = full - ms["gather dynamic rolled"] - ms["product"] * kept
     log(f"parts of K1 at rows {rows}, channels {channels} -> {channels}, K {K} ({gpu}):")
     log(f"  {'whole conv (K1 gather_gemm)':<52} {full:9.3f} ms  1.000 of K1")
     for name, v in parts:
         log(f"  {name:<52} {v:9.3f} ms  {v / full:5.3f} of K1")
-    log(f"  {'left over: K1 - row gather (rolled) - product':<52} {left:9.3f} ms  "
+    log(f"  {'left over: K1 - row gather - product at its work':<52} {left:9.3f} ms  "
         f"{left / full:5.3f} of K1")
 
 

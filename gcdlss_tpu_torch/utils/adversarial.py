@@ -1,0 +1,64 @@
+"""Inputs that the training plans never make, for holding the kernels to
+their plain versions: voxel levels for the k^3 neighbor map and shapes for the
+dense shifted-row product. numpy only; the CPU tests, the tests on the card
+and `chip_smoke.py` all take them from here."""
+
+from __future__ import annotations
+
+import numpy as np
+
+FIELD_EDGE = (1 << 14) - 1  # the largest coordinate the packed keys hold; the smallest is -FIELD_EDGE - 1
+
+
+def neighbor_map_levels(seed: int = 13) -> dict:
+    """name -> (coords [n, 4] int32 (b, x, y, z), not sorted, cap). No cap
+    but one is a multiple of 128 (the rows a block of the map kernel owns)."""
+    rng = np.random.default_rng(seed)
+    e = FIELD_EDGE
+    levels = {}
+
+    # voxels on every face, edge and corner of the coordinate field, where
+    # `encode_coords`' clip folds neighbouring queries onto one voxel, plus a blob
+    parts = [rng.integers(-12, 12, size=(1500, 3))]
+    for axes in ((0,), (1,), (2,), (0, 1), (1, 2), (0, 1, 2)):
+        face = rng.integers(-3, 3, size=(160, 3))
+        for a in axes:
+            face[:, a] = rng.choice([-e - 1, -e, -e + 1, e - 2, e - 1, e], 160)
+        parts.append(face)
+    xyz = np.concatenate(parts)
+    levels["field_edge"] = (_with_batch(rng, xyz, 3), 2509)
+
+    levels["all_sentinel"] = (np.zeros((0, 4), np.int32), 300)
+    levels["one_voxel"] = (np.array([[1, 5, -7, 3]], np.int32), 130)
+
+    g = np.arange(-6, 6)
+    cube = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    levels["dense_cube"] = (_with_batch(rng, cube, 1), len(cube) + 3)  # every neighbour present
+
+    cols = rng.integers(-40, 40, size=(10, 2))
+    runs = np.concatenate([np.column_stack([np.full(200, x), np.full(200, y), np.arange(-100, 100)])
+                           for x, y in cols])
+    levels["z_runs"] = (_with_batch(rng, runs, 2), 4100)
+
+    same = rng.integers(-9, 9, size=(500, 3))
+    levels["four_batches"] = (np.concatenate(
+        [np.column_stack([np.full(len(same), b), same]) for b in range(4)]).astype(np.int32), 2100)
+
+    # more voxels than rows: the level is cut at its capacity
+    levels["over_capacity"] = (_with_batch(rng, rng.integers(-8, 8, size=(3000, 3)), 2), 1000)
+    return levels
+
+
+def _with_batch(rng, xyz: np.ndarray, nbatch: int) -> np.ndarray:
+    b = rng.integers(0, nbatch, size=(len(xyz), 1))
+    return np.concatenate([b, xyz], 1).astype(np.int32)
+
+
+# (N, K, Ci, Co) of the shifted-row product: N = 1 and around a block's 128 and
+# 256 rows, K odd, even and 1, Ci from one 16-byte piece to the widest layer,
+# Co not a multiple of 8, one and two column tiles
+TILE_GEMM_SHAPES = (
+    (1, 27, 8, 20), (127, 2, 24, 96), (129, 8, 96, 256), (4097, 27, 256, 20),
+    (1, 1, 96, 96), (127, 27, 96, 96), (129, 1, 256, 256), (4097, 8, 24, 256),
+    (4097, 2, 8, 96), (129, 27, 24, 20), (127, 8, 256, 96), (4097, 27, 96, 256),
+)

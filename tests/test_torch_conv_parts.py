@@ -19,6 +19,7 @@ from gcdlss_tpu.ops import conv as jconv
 from gcdlss_tpu.ops.plan import build_unet_plan
 from gcdlss_tpu_torch.ops import conv_parts as cp
 from gcdlss_tpu_torch.tools import conv_parts as tool
+from gcdlss_tpu_torch.utils.adversarial import TILE_GEMM_SHAPES
 
 N = 4096
 K = 27
@@ -124,6 +125,44 @@ def test_tile_gemm_matches_shifted_matmuls(book, c):
     _close(got.numpy(), np.asarray(ref, np.float32))
 
 
+@pytest.mark.parametrize("n,k,ci,co", TILE_GEMM_SHAPES)
+def test_tile_gemm_plain_matches_jax_conv_on_shifted_rows(n, k, ci, co):
+    """P3's function is the JAX conv on the book nbr[u, j] = clip(u + j - K // 2,
+    0, N - 1), at ragged N, even and odd K, Co that is no multiple of 8.
+    Both sum K * Ci products in f32, in another order: 1e-4 of the
+    reference's largest magnitude."""
+    rng = np.random.default_rng(n + 31 * k + ci + co)
+    x = _bf16(rng.standard_normal((n, ci)))
+    w = _bf16(rng.standard_normal((k, ci, co)) * (2.0 / (k * ci)) ** 0.5)
+    nbr = np.clip(np.arange(n)[:, None] + np.arange(k)[None, :] - k // 2, 0, n - 1).astype(np.int32)
+    ref = np.asarray(jconv.gather_conv(jnp.asarray(x), jnp.asarray(nbr), jnp.asarray(w)),
+                     np.float32)
+    before = cp.tile_gemm.launches
+    got = cp.tile_gemm(torch.tensor(x), torch.tensor(w)).numpy()
+    assert cp.tile_gemm.launches == before  # CPU tensors take the plain version
+    assert got.shape == ref.shape == (n, co) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+
+
+def test_tile_gemm_refusals():
+    """What P3's wrapper refuses on any device, and the rule for what its
+    kernel serves on the card."""
+    x, w = torch.zeros(64, 16), torch.zeros(3, 16, 8)
+    for bad_x, bad_w in ((x[:, :12], w[:, :12]),  # Ci no multiple of 8
+                         (x, w[:, :8]),           # x and w disagree
+                         (x[:0], w), (x, w[:0]), (x, w[:, :, :0]),  # empty
+                         (x[0], w), (x, w[0])):   # wrong ranks
+        with pytest.raises(ValueError):
+            cp.tile_gemm(bad_x, bad_w)
+    # the window of 256 + K - 1 rows and three stages of W must fit 232,448 bytes
+    assert all(cp.tile_gemm_fits(k, ci, co) for k, ci, co in
+               ((27, 96, 96), (27, 256, 256), (1, 8, 20), (90, 256, 256), (125, 96, 20)))
+    assert not any(cp.tile_gemm_fits(k, ci, co) for k, ci, co in
+                   ((91, 256, 256), (27, 384, 96), (27, 512, 256)))
+    # every shape the tool, the tests and the smoke run is served
+    assert all(cp.tile_gemm_fits(k, ci, co) for _, k, ci, co in TILE_GEMM_SHAPES)
+
+
 @pytest.mark.parametrize("random", [False, True], ids=["sequential", "random"])
 @pytest.mark.parametrize("layout", cp.LAYOUTS)
 def test_window_sum_matches_numpy(book, layout, random):
@@ -183,7 +222,8 @@ def test_tool_prints_one_line_per_mode(capsys, tmp_path):
         assert r["device"].startswith("cpu")
     assert {r["part"] for r in rows} == {"P1", "P2", "P3", "P4", "K1"}
     table = [ln for ln in lines if ln.startswith("  ") and ln.endswith(" of K1")]
-    assert len(table) == 11 and "whole conv" in table[0] and "left over" in table[-1]
+    assert len(table) == 12 and "whole conv" in table[0] and "left over" in table[-1]
+    assert len([ln for ln in table if "P3 x strips kept" in ln]) == 1  # the product at K1's work
     # the modes that one PyTorch call computes carry its time, the others null
     with_library = {"product"} | {m for m in modes if m.startswith("gather ")}
     assert {r["mode"] for r in rows if r["library_ms"] is not None} == with_library

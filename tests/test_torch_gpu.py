@@ -20,8 +20,10 @@ from gcdlss_tpu_torch.ops import conv as plain
 from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
 from gcdlss_tpu_torch.ops.coords import SENTINEL_HI
 from gcdlss_tpu_torch.ops.plan import _column_ranks, build_unet_plan, join_neighbor_map
-from gcdlss_tpu_torch.ops.plan_kernel import (cube_candidates_map, cube_candidates_plain,
+from gcdlss_tpu_torch.ops.plan_kernel import (CUBE_MAP_MAX_K1, cube_candidates_map,
+                                              cube_candidates_plain, cube_direct_rule,
                                               cube_neighbor_map)
+from gcdlss_tpu_torch.utils.adversarial import TILE_GEMM_SHAPES, neighbor_map_levels
 
 pytestmark = pytest.mark.gpu
 CAPS = (4096, 2048, 1024, 512, 256)
@@ -157,6 +159,60 @@ def test_cube_map_matches_join(plan, lvl, k1):
     assert torch.equal(cube_neighbor_map(kh, kl, k1), join_neighbor_map(kh, kl, k1))
 
 
+@pytest.mark.parametrize("k1", [3, 5, 7])
+@pytest.mark.parametrize("name", sorted(neighbor_map_levels()))
+def test_cube_map_matches_join_on_adversarial_levels(plan, name, k1):
+    """Voxels on the faces and corners of the coordinate field (where the
+    join path's clip folds queries and its scatter-max picks the largest
+    row), no voxel, one voxel, a full cube, long z runs, four equal batches,
+    a level cut at its capacity; caps that are no multiple of a block's rows.
+    Bit for bit, the same bits on every launch, one launch counted."""
+    from gcdlss_tpu_torch.ops.coords import encode_coords, sorted_unique
+
+    coords, cap = neighbor_map_levels()[name]
+    dev = plan.stem_nbr.device
+    c = torch.as_tensor(coords, device=dev)
+    hi, lo = encode_coords(c, torch.ones(len(c), dtype=torch.bool, device=dev))
+    (kh, kl), _, _, _ = sorted_unique(hi, lo, cap)
+    before = cube_neighbor_map.launches
+    got = cube_neighbor_map(kh, kl, k1)
+    assert cube_neighbor_map.launches == before + 1
+    assert torch.equal(got, join_neighbor_map(kh, kl, k1))
+    assert torch.equal(got, cube_neighbor_map(kh, kl, k1))
+    if k1 == 3:
+        assert torch.equal(got.cpu(), cube_direct_rule(kh.cpu(), kl.cpu(), k1))
+
+
+def test_cube_map_serves_its_largest_k1(plan):
+    """The widest cube the kernel's shared memory holds, on a full cube of
+    12^3 voxels (every voxel in every other's reach) and on one voxel."""
+    from gcdlss_tpu_torch.ops.coords import encode_coords, sorted_unique
+
+    dev = plan.stem_nbr.device
+    for name in ("dense_cube", "one_voxel"):
+        coords, cap = neighbor_map_levels()[name]
+        c = torch.as_tensor(coords, device=dev)
+        hi, lo = encode_coords(c, torch.ones(len(c), dtype=torch.bool, device=dev))
+        (kh, kl), _, _, _ = sorted_unique(hi, lo, cap)
+        got = cube_neighbor_map(kh, kl, CUBE_MAP_MAX_K1)
+        assert torch.equal(got, join_neighbor_map(kh, kl, CUBE_MAP_MAX_K1))
+
+
+def test_cube_map_rejects_wrong_inputs(plan):
+    kh, kl = plan.levels[1].key_hi, plan.levels[1].key_lo
+    with pytest.raises(TypeError):
+        cube_neighbor_map(kh.long(), kl, 3)
+    with pytest.raises(ValueError):
+        cube_neighbor_map(kh, kl[:-1], 3)
+    with pytest.raises(ValueError):
+        cube_neighbor_map(kh[::2], kl[::2], 3)  # not contiguous
+    with pytest.raises(ValueError):
+        cube_neighbor_map(kh, kl.cpu(), 3)
+    for k1 in (1, 4, CUBE_MAP_MAX_K1 + 2):
+        with pytest.raises(ValueError):
+            cube_neighbor_map(kh, kl, k1)
+
+
 @pytest.mark.parametrize("lvl,k1", [(0, 5), (0, 3), (1, 3), (3, 3)])
 def test_cube_candidates_matches_plain_and_k3(plan, lvl, k1):
     kh, kl = plan.levels[lvl].key_hi, plan.levels[lvl].key_lo
@@ -284,3 +340,46 @@ def test_conv_parts_reject_wrong_inputs(parts):
         cp.tile_gemm(x, w[:, :8].contiguous())
     with pytest.raises(ValueError):
         cp.onehot_conv(x, nbr[:, :8].contiguous(), w)
+
+
+@pytest.mark.parametrize("n,k,ci,co", TILE_GEMM_SHAPES)
+def test_tile_gemm_ragged_shapes(plan, n, k, ci, co):
+    """P3 at N = 1 and around a block's rows, K odd, even and 1, Ci from one
+    16-byte piece up, Co that is no multiple of 8 and two column tiles:
+    within the tool's tolerance of the plain version, the same bits on every
+    launch."""
+    from gcdlss_tpu_torch.ops import conv_parts as cp
+    from gcdlss_tpu_torch.tools.conv_parts import TOL
+
+    dev = plan.stem_nbr.device
+    g = torch.Generator(device="cuda").manual_seed(n + k + ci + co)
+    x = torch.randn(n, ci, device=dev, generator=g).bfloat16()
+    w = torch.randn(k, ci, co, device=dev, generator=g).mul((2.0 / (k * ci)) ** 0.5).bfloat16()
+    before = cp.tile_gemm.launches
+    out = cp.tile_gemm(x, w)
+    assert cp.tile_gemm.launches == before + 1
+    ref = cp.tile_gemm_plain(x, w)
+    torch.testing.assert_close(out, ref, rtol=0, atol=TOL["P3"] * float(ref.abs().max()))
+    assert torch.equal(out, cp.tile_gemm(x, w))
+
+
+def test_tile_gemm_refuses_what_the_kernel_does_not_serve(plan):
+    from gcdlss_tpu_torch.ops import conv_parts as cp
+
+    dev = plan.stem_nbr.device
+    store = torch.zeros(64 * 16 + 1, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(3, 16, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cp.tile_gemm(store[1:].view(64, 16), w)
+    with pytest.raises(ValueError, match="shared memory"):
+        cp.tile_gemm(torch.zeros(64, 512, device=dev, dtype=torch.bfloat16),
+                     torch.zeros(27, 512, 8, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        cp.tile_gemm(store[:1024].view(64, 16).float(), w)
+    # the wrapper's rule for what fits is the C entry's
+    from gcdlss_tpu_torch.ops import _build
+    lib = _build.library()
+    for k in (1, 2, 27, 64, 90, 91, 125, 343):
+        for ci in (8, 24, 96, 256, 264, 384, 1032):
+            for co in (1, 96, 97, 256):
+                assert cp.tile_gemm_fits(k, ci, co) == (lib.gcd_tile_gemm_scratch(k, ci, co) >= 0)

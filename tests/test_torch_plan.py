@@ -19,6 +19,7 @@ from gcdlss_tpu_torch.ops import coords as tc
 from gcdlss_tpu_torch.ops import join as tj
 from gcdlss_tpu_torch.ops import plan as tp
 from gcdlss_tpu_torch.ops import plan_kernel as tpk
+from gcdlss_tpu_torch.utils.adversarial import neighbor_map_levels
 
 CAPS = (2048, 1536, 1024, 512, 512)
 
@@ -309,3 +310,106 @@ def test_build_unet_plan_plan_kernel_1_matches_jax():
         with pytest.raises(ValueError):
             tp.build_unet_plan(torch.as_tensor(coords), torch.as_tensor(valid), CAPS,
                                presorted=True, plan_kernel=bad)
+
+
+# ---- levels no scan makes (`utils.adversarial.neighbor_map_levels`)
+
+LEVELS = neighbor_map_levels()
+
+
+def _level_keys(name):
+    """Sorted unique sentinel-padded keys of an adversarial level, by the JAX
+    package and by the port (held equal here)."""
+    coords, cap = LEVELS[name]
+    valid = np.ones(len(coords), bool)
+    jh, jl = jc.encode_coords(jnp.asarray(coords.reshape(-1, 4)), jnp.asarray(valid))
+    (uh, ul), _, _, _ = jc.sorted_unique(jh, jl, cap)
+    th, tl = tc.encode_coords(torch.as_tensor(coords.reshape(-1, 4)), torch.as_tensor(valid))
+    (kh, kl), _, _, _ = tc.sorted_unique(th, tl, cap)
+    _eq(uh, kh)
+    _eq(ul, kl)
+    return uh, ul, kh, kl
+
+
+@pytest.mark.parametrize("k1", [3, 5])
+@pytest.mark.parametrize("name", sorted(LEVELS))
+def test_join_neighbor_map_matches_jax_on_adversarial_levels(name, k1):
+    """K3's plain version against the JAX package's map on voxels at the
+    field's faces and corners, an empty level, one voxel, a full cube, long z
+    runs, four equal batches and a level cut at its capacity."""
+    uh, ul, kh, kl = _level_keys(name)
+    lvalid = uh != jc.SENTINEL_HI
+    lcoords = jnp.where(lvalid[:, None], jc.decode_keys(uh, ul), 0)
+    ref = jp.build_neighbor_map(lcoords, lvalid, uh, ul, jp._offsets(k1))
+    got = tp.join_neighbor_map(kh, kl, k1)
+    assert got.shape == (LEVELS[name][1], k1 ** 3) and got.dtype == torch.int32
+    _eq(ref, got)
+    _eq(ref, tpk.cube_neighbor_map(kh, kl, k1))  # the wrapper on CPU tensors
+
+
+@pytest.mark.parametrize("k1", [3, 5])
+@pytest.mark.parametrize("name", sorted(LEVELS))
+def test_cube_direct_rule_equals_join_map(name, k1):
+    """The rule the CUDA map kernel computes each row by, whole and without a
+    transpose (rows inside the field: the row of key + offset at every offset
+    of both halves; rows at its faces: the clipped query below the center,
+    the largest row whose clipped query lands here above it), gives the join
+    map bit for bit, the folds at the field's edge included."""
+    _, _, kh, kl = _level_keys(name)
+    got = tpk.cube_direct_rule(kh, kl, k1)
+    want = tp.join_neighbor_map(kh, kl, k1)
+    assert torch.equal(got, want)
+    if name == "field_edge":  # the folds are there: some row above the center maps to itself
+        half = k1 ** 3 // 2
+        rows = torch.arange(kh.shape[0], dtype=torch.int32)[:, None]
+        assert bool((want[:, half + 1:] == rows).any())
+    if name == "dense_cube":  # an inner voxel of the full cube has every neighbour
+        assert bool((want >= 0).all(dim=1).any())
+
+
+@pytest.mark.parametrize("k1", [3, 5])
+@pytest.mark.parametrize("name", sorted(LEVELS))
+def test_column_queries_of_consecutive_rows_have_nondecreasing_ranks(name, k1):
+    """What lets a block of the map kernel search a short range: among the
+    rows whose coordinates lie k1 // 2 or more inside the field, the query of
+    one (dx, dy) column is key + constant, so its insertion rank does not
+    decrease with the row, and every match of the column lies in the k1
+    table rows from that rank on."""
+    _, _, kh, kl = _level_keys(name)
+    r = k1 // 2
+    keys = tc.pack_keys(kh, kl)
+    x, y, z = kh % tc.FIELD, kl // tc.FIELD, kl % tc.FIELD
+    lo_c = torch.minimum(x, torch.minimum(y, z))
+    hi_c = torch.maximum(x, torch.maximum(y, z))
+    fast = (kh != tc.SENTINEL_HI) & (lo_c >= r) & (hi_c <= tc.FIELD - 1 - r)
+    want = tp.join_neighbor_map(kh, kl, k1)
+    for dx in range(-r, r + 1):
+        for dy in range(-r, r + 1):
+            q0 = keys[fast] + ((dx << 32) + dy * tc.FIELD - r)
+            rank = torch.searchsorted(keys, q0)
+            assert bool((rank[1:] >= rank[:-1]).all())
+            col = ((dx + r) * k1 + (dy + r)) * k1
+            hit = want[fast][:, col:col + k1]
+            present = hit >= 0
+            lo = rank[:, None].expand_as(hit)[present]
+            assert bool(((hit[present] >= lo) & (hit[present] < lo + k1)).all())
+
+
+@pytest.mark.parametrize("name", ["dense_cube", "z_runs", "four_batches", "over_capacity",
+                                  "one_voxel", "all_sentinel"])
+def test_cube_candidates_plain_equals_join_map_inside_the_field(name):
+    """K4's plain version on the column ranks gives the join map wherever no
+    voxel touches the field's faces (there its arithmetic queries differ)."""
+    _, _, kh, kl = _level_keys(name)
+    for k1 in (3, 5):
+        p, has = tp._column_ranks(kh != tc.SENTINEL_HI, kh, kl, k1)
+        assert torch.equal(tpk.cube_candidates_plain(kh, kl, p, has, k1),
+                           tp.join_neighbor_map(kh, kl, k1))
+
+
+def test_cube_neighbor_map_refuses_what_the_kernel_does_not_serve():
+    """The checks ahead of the launch, on a device without a kernel."""
+    kh = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tpk.cube_neighbor_map(kh, kh, 3)  # neither the CPU nor a CUDA device
+    assert tpk.CUBE_MAP_MAX_K1 == 21
