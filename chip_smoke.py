@@ -30,14 +30,20 @@ Phases, each of which raises on failure:
      a level cut at its capacity; k1 = 3, 5, 7) against their plain versions;
   4. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
      on the card (kernels) and on the CPU (plain versions) with the same
-     weights, relative error <= REF_TOL;
+     weights, relative error <= REF_TOL; then the plan build at the Stage-1
+     and Stage-2 caps under `torch.cuda.set_sync_debug_mode("error")` (no
+     operation of it may make the host wait for the card);
   5. conv parts: the component kernels P1-P4 of `ops/conv_parts.py` (window
      staging, gather, product, one-hot conv) and K1, every mode of
      `tools/conv_parts.py`, against their plain versions at the tool's two
      configurations (262,144 rows x 96 channels; 131,072 x 256); P3 again at
      ragged shapes (N 1 .. 4,097, K 1, 2, 8, 27, Ci 8 .. 256, Co 20, 96, 256),
-     two runs the same bits; then the tool's own `main` at 262,144 x 96,
-     every mode once;
+     two runs the same bits; P2 in every mode at ragged shapes and books
+     (N_out 1 .. 4,097, C 8 .. 256, K 1, 8, 27; no entry, every entry, the
+     last row of x, N_in != N_out); P4 on adversarial books (random, empty,
+     one row, one window; Ci 8 .. 256, Co 20 .. 256) against the conv, its
+     far count against the plain rule, two runs the same bits; then the
+     tool's own `main` at 262,144 x 96, every mode once;
   6. Stage-1 slice: `ExpPretrain` with MinkUNet34 in bf16, 3 steps at batch 2
      through the port's `SemanticKITTIDataset` and `PrefetchLoader`
      (per-scan seeds: the same batches, so the same losses, on every run),
@@ -268,6 +274,69 @@ def tile_gemm_ragged_phase(device) -> None:
     torch.cuda.synchronize()
     log(f"P3 ragged: {len(shapes)} shapes (N, K, Ci, Co) against the plain version, two "
         f"launches each; worst relative error {worst:.3e}")
+
+
+def plan_sync_case(device, stage: int) -> None:
+    """`build_unet_plan` on synthetic scans at the Stage-1 (1) or Stage-2 (2)
+    caps under `torch.cuda.set_sync_debug_mode("error")`: an operation that
+    makes the host wait for the card raises there. The plan must equal the
+    one built without the debug mode."""
+    import torch
+
+    from gcdlss_tpu_torch.ops.plan import build_unet_plan
+    from gcdlss_tpu_torch.train.common import default_caps
+
+    caps = default_caps(CAP0 if stage == 1 else S2_CAP0)
+    coords, valid = voxel_batch(np.random.default_rng(7), device, sides=stage)
+    ref = build_unet_plan(coords, valid, caps, presorted=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = build_unet_plan(coords, valid, caps, presorted=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not (torch.equal(plan.stem_nbr, ref.stem_nbr) and torch.equal(plan.inverse, ref.inverse)
+            and all(torch.equal(a.nbr3, b.nbr3) for a, b in zip(plan.levels, ref.levels))
+            and all(torch.equal(a.children, b.children) for a, b in zip(plan.pools, ref.pools))):
+        raise AssertionError(f"plan sync: the stage-{stage} plan differs between two builds")
+
+
+def plan_sync_phase(device) -> None:
+    for stage in (1, 2):
+        plan_sync_case(device, stage)
+    log("plan sync: build_unet_plan at the Stage-1 and Stage-2 caps ran under "
+        "set_sync_debug_mode('error'): no host sync")
+
+
+def gather_sum_ragged_phase(device) -> None:
+    """P2 at `utils.adversarial.GATHER_SUM_CASES` in every mode that serves
+    each case (`tools.conv_parts.check_gather_sum_case`)."""
+    import torch
+
+    from gcdlss_tpu_torch.tools.conv_parts import check_gather_sum_case
+    from gcdlss_tpu_torch.utils.adversarial import GATHER_SUM_CASES
+
+    worst = max(check_gather_sum_case(device, *case) for case in GATHER_SUM_CASES)
+    torch.cuda.synchronize()
+    log(f"P2 ragged: {len(GATHER_SUM_CASES)} cases (N_out 1 .. 4,097, C 8 .. 256, K 1, 8, 27, "
+        f"books empty / full / last row / random, N_in != N_out), every mode; worst relative "
+        f"error {worst:.3e}, index_only bit for bit")
+
+
+def onehot_adversarial_phase(device) -> None:
+    """P4 at `utils.adversarial.ONEHOT_CASES` against the conv, `far` against
+    the plain rule, two launches the same bits (`tools.conv_parts.check_onehot_case`)."""
+    import torch
+
+    from gcdlss_tpu_torch.tools.conv_parts import check_onehot_case
+    from gcdlss_tpu_torch.utils.adversarial import ONEHOT_CASES
+
+    results = [check_onehot_case(device, *case) for case in ONEHOT_CASES]
+    torch.cuda.synchronize()
+    log(f"P4 adversarial: {len(ONEHOT_CASES)} books (random, empty, one row, one window; "
+        f"Ci 8 .. 256, Co 20 .. 256, N_in != N_out) against the conv, far counts "
+        f"{[far for _, far in results]} as the plain rule, two launches bit-equal; worst "
+        f"relative error {max(err for err, _ in results):.3e}")
 
 
 def kernel_phase(device) -> list:
@@ -581,9 +650,12 @@ def conv_parts_phase(device, card: str):
                                  replaces=r["tpu_tool"].split(" ")[0].rstrip(";"),
                                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                                  plain_ms=r["plain_ms"], **bound(r["min_bytes"], r["flops"]))
-                            | {"library_ms": r["library_ms"]})
+                            | {"library_ms": r["library_ms"]}
+                            | ({"far_entries": r["far_entries"]} if "far_entries" in r else {}))
 
     tile_gemm_ragged_phase(device)
+    gather_sum_ragged_phase(device)
+    onehot_adversarial_phase(device)
     kernels = part_kernels()
     out = ROOT / "build" / "conv_parts.json"
     for fn in kernels.values():
@@ -677,7 +749,7 @@ def stage1_phase(device, gpu_name: str) -> dict:
     steps = module.step_log
     for i, s in enumerate(steps):
         log(f"stage1 step {i}: loss {s['loss']:.6f} plan_overflow {s['plan_overflow']} "
-            f"time {s['seconds'] * 1e3:.1f} ms ({gpu_name})")
+            f"device time {s['step_ms']:.1f} ms ({gpu_name})")
     log(f"stage1: mean loss {mean_loss:.6f}; validate loss {vm['loss']:.6f} "
         f"mIoU {vm['mIoU']:.6f} confusion sum {int(vm['conf'].sum())}; "
         f"peak memory {peak_gib:.3f} GiB; launches {launches}")
@@ -817,6 +889,7 @@ def main() -> int:
     adversarial_phase(device)
     cube_map_adversarial_phase(device)
     reference_phase(device)
+    plan_sync_phase(device)
     part_rows, launches_parts = conv_parts_phase(device, card)
     launches_s1 = stage1_phase(device, gpu_name)
     launches_s2 = stage2_phase(device, gpu_name)
@@ -834,6 +907,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("launches_stage1", "launches_parts", "bound_measured_ms", "bound_dense_ms", "fill",
+             "far_entries",
              "strips_kept", "pairs", "dw_only_ms", "ranks_plus_kernel_ms", "k3_ms")
     missing = [(r["name"], k) for r in rows for k in keys if k not in r]
     if missing:

@@ -18,12 +18,31 @@
 //                   The sum is the cheapest consumer that keeps every load
 //                   alive. Bound by bytes: NB * W * C * 2 of them are staged.
 //   P2 gather_sum   out[u, c] = sum_k [nbr[u, k] >= 0] x[nbr[u, k], c]
-//                   The gather without the product: one thread per (row,
-//                   8 channels), 16-byte loads; the row index read from the
-//                   book (dynamic), or the row itself (static: the loads
-//                   without the indirection); the loop over the offsets
-//                   rolled or unrolled. index_only reads the book alone.
-//                   Bound by bytes (scattered 16-byte to 512-byte pieces).
+//                   The gather without the product, one 16-byte piece (8
+//                   channels) a lane, 16-byte f32 stores.
+//                   dynamic: a row's pieces go to consecutive lanes (16 at
+//                   96 channels, 32 at 256). A block stages its contiguous
+//                   slice of the book (rows x K int32) once with 16-byte
+//                   copies, so no lane loads an index from device memory that
+//                   another lane of its row also loads, and moves each row's
+//                   present entries to the front of its slice; a lane then
+//                   keeps the loads of 4 present rows in flight before it
+//                   adds them, and loads nothing for an absent entry. Bound
+//                   by bytes: x, the book and out once, 0.054 / 0.064 ms at
+//                   the tool's shapes (3.35 TB/s); at 256 channels the 7
+//                   present rows a row gathers (0.48 GB) come from L2 at its
+//                   rate, ~1.5x that bound.
+//                   static: the same loads without the indirection, K * x[u]:
+//                   a thread per (row, piece) copies its piece into shared
+//                   memory and reads it from there once per offset, 27 reads
+//                   of each row, 1.36 / 1.81 GB: bound by shared memory (128
+//                   B a clock an SM, 132 SMs, 1.755 GHz: 0.046 / 0.061 ms),
+//                   beside device memory's 0.045 / 0.060.
+//                   index_only: each row's entries summed in order from the
+//                   staged slice, one thread a row: the book's bytes and
+//                   nothing more (0.009 / 0.004 ms).
+//                   The loop over the offsets runs at run time (rolled) or
+//                   is unrolled for K = 27.
 //   P3 tile_gemm    out[u] = sum_k x[clip(u + k - K/2, 0, N-1)] @ W[k]
 //                   The product without the gather, on the tensor cores
 //                   (`wgmma`, hopper_mma.cuh). A block of two warpgroups
@@ -48,18 +67,39 @@
 //                   Bound by operations (2 N K Ci Co on the tensor cores); x
 //                   leaves device memory once per block.
 //   P4 onehot_conv  out[u] = sum_k x[nbr[u, k]] @ W[k]
-//                   The conv with the gather as a product: per (block of 64
-//                   rows, k) a sub-window of 128 source rows from the block's
-//                   smallest present entry is staged, G = onehot(rel) @ sub,
-//                   then G @ W[k]. An entry outside the sub-window is read
-//                   directly from x inside the kernel: nothing is capped,
-//                   poisoned or dropped, and `far` counts those entries.
-//                   Bound by operations: the one-hot product alone is twice
-//                   the conv's arithmetic on the FMA units.
-//
+//                   The conv with its gather as a product on the tensor
+//                   cores (`mma.sync`, K1's instruction). A block owns 128
+//                   output rows (8 warps x a 16-row strip) and up to 128
+//                   output columns. Per (offset with an entry, 64-channel
+//                   chunk) a stage of a ring of 4 holds the window of 128
+//                   source rows from the block's smallest present entry,
+//                   one tensor-map copy (128-byte swizzle, so `ldmatrix` is
+//                   free of bank conflicts; rows beyond x and channels
+//                   beyond Ci arrive as zeros), and W's slice, one bulk copy
+//                   of an image laid out as each lane's B fragments
+//                   (`pack_onehot_w_kernel`). A ninth warp starts the
+//                   copies; full / empty `mbarrier`s order the ring, and no
+//                   block barrier runs in the loop. Per (strip, stage):
+//                   G = onehot(rel) @ window in f32, the one-hot A fragment
+//                   built in registers as (rel == column), only the k16
+//                   tiles of the window that hold an entry of the strip (a
+//                   warp-wide OR), nothing for a strip without an entry; an
+//                   entry outside the window has its row of G read from x
+//                   directly and is counted in `far` (an integer atomic);
+//                   then G's C fragments, packed to bf16 without rounding,
+//                   are the A fragments of out += G @ W[k]. No float
+//                   atomics: reruns give the same bits. Work at the tool's
+//                   shapes (262,144 x 96 / 131,072 x 256, K = 27): G @ W on
+//                   the kept strips ~0.20 / 0.62 ms of tensor-core time (P3
+//                   x strips kept); windows ~1.2 / 3.1 GB and W slices ~1.2 /
+//                   3.1 GB from L2 (0.87 of (block, offset) pairs kept; 256
+//                   channels take two column blocks, each staging every
+//                   window). K1 computes the same function.
 // Every C entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not 0. Nothing here allocates.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -93,6 +133,13 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
+}
+
+// 8 f32 sums as two 16-byte stores marked as written once (evicted first),
+// so that they do not push rows of x out of L2
+__device__ __forceinline__ void st32_once(float* o, const float* acc) {
+  __stcs(reinterpret_cast<float4*>(o), make_float4(acc[0], acc[1], acc[2], acc[3]));
+  __stcs(reinterpret_cast<float4*>(o) + 1, make_float4(acc[4], acc[5], acc[6], acc[7]));
 }
 
 // 8 bf16 values held in a uint4 -> f32
@@ -241,46 +288,51 @@ window_sum_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ ws,
 
 // ------------------------------------------------------------------ P2
 
-// KT = 27: the loop over the offsets fully unrolled; KT = 0: rolled, k at run time.
-template <int KT, bool STATIC>
-__global__ void __launch_bounds__(THREADS)
-gather_sum_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ nbr,
-                  float* __restrict__ out, int n_out, int k, int c) {
-  const int c8 = c / 8;
-  const int64_t t = blockIdx.x * (int64_t)THREADS + threadIdx.x;
-  const int64_t u = t / c8;
-  const int cg = (int)(t % c8);
-  if (u >= n_out) return;
-  const int32_t* row = nbr + u * k;
-  float acc[8], f[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-  auto body = [&](int kq) {
-    const int32_t j = STATIC ? (int32_t)u : row[kq];
-    if (j >= 0) {
-      unpack8(ld16(x + (int64_t)j * c + cg * 8), f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] += f[e];
-    }
-  };
-  if (KT > 0) {
-#pragma unroll
-    for (int kq = 0; kq < KT; ++kq) body(kq);
-  } else {
-#pragma unroll 1
-    for (int kq = 0; kq < k; ++kq) body(kq);
-  }
-  float4* o = reinterpret_cast<float4*>(out + u * c + cg * 8);
-  o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+constexpr int P2_ROWS = 64;         // rows of a dynamic block, at least: its book slice is staged once
+constexpr int P2_DEPTH = 4;         // present rows whose pieces a lane loads before it adds them
+constexpr int P2_INDEX_ROWS = 256;  // rows of an index_only block, one thread a row
+
+// a 16-byte shared-memory load that the compiler neither removes nor merges
+__device__ __forceinline__ uint4 lds16(const void* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+  return v;
 }
 
+// Book rows [u0, u0 + rows), one contiguous slice of rows * k int32, into
+// shared memory: 16-byte cp.async copies when the slice starts on 16 bytes
+// (u0 * k is a multiple of 4, so whenever the book does), 4-byte ones for
+// the rest. Every thread of the block calls it; the caller synchronises.
+__device__ __forceinline__ void stage_book(int32_t* s, const int32_t* __restrict__ nbr, int64_t u0,
+                                           int rows, int k, int tid, int nthreads) {
+  const int32_t* src = nbr + u0 * k;
+  const int n = rows * k;
+  int done = 0;
+  if (((uintptr_t)src & 15u) == 0) {
+    for (int i = tid; i < n / 4; i += nthreads) cp_async16(s + 4 * i, src + 4 * i);
+    done = n / 4 * 4;
+  }
+  for (int i = done + tid; i < n; i += nthreads) s[i] = src[i];
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// index_only: out[u] = sum_k nbr[u, k], one thread a row, the block's slice
+// read once from device memory and each row summed from shared memory in
+// order. KT = 27: the loop over the offsets unrolled; KT = 0: rolled.
 template <int KT>
 __global__ void __launch_bounds__(THREADS)
 index_sum_kernel(const int32_t* __restrict__ nbr, int32_t* __restrict__ out, int n_out, int k) {
-  const int64_t u = blockIdx.x * (int64_t)THREADS + threadIdx.x;
-  if (u >= n_out) return;
-  const int32_t* row = nbr + u * k;
+  extern __shared__ __align__(16) int32_t book[];
+  const int64_t u0 = (int64_t)blockIdx.x * P2_INDEX_ROWS;
+  const int rows = (int)min((int64_t)P2_INDEX_ROWS, n_out - u0);
+  stage_book(book, nbr, u0, rows, k, threadIdx.x, THREADS);
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= rows) return;
+  const int32_t* row = book + r * k;  // k odd: the 32 rows of a warp fall into 32 banks
   int32_t s = 0;
   if (KT > 0) {
 #pragma unroll
@@ -289,58 +341,147 @@ index_sum_kernel(const int32_t* __restrict__ nbr, int32_t* __restrict__ out, int
 #pragma unroll 1
     for (int kq = 0; kq < k; ++kq) s += row[kq];
   }
-  out[u] = s;
+  out[u0 + r] = s;
 }
 
-// ------------------------------------------------------------------ P4's tile helpers, P3, P4
-
-constexpr int TM = 64;  // output rows per block
-constexpr int TN = 64;  // output columns per block
-constexpr int TK = 32;  // reduction depth per step
-
-// Bs[kk][n] = w[rbase + kk, n0 + n] for kk < rows, zero beyond
-__device__ __forceinline__ void load_b_tile(float (*Bs)[TN], const bf16* __restrict__ w,
-                                            int64_t rbase, int rows, int n0, int co, int tid) {
+// static: the loads without the indirection. One thread per (row, 16-byte
+// piece) of x, in order, so that a warp's loads and stores are contiguous;
+// the thread copies its piece into its slot of shared memory and reads it
+// from there once per offset. KT = 27: the loop over the offsets unrolled;
+// KT = 0: rolled.
+template <int KT>
+__global__ void __launch_bounds__(THREADS)
+static_sum_kernel(const bf16* __restrict__ x, float* __restrict__ out, int n, int k, int c) {
+  __shared__ uint4 slot[THREADS];
+  const int64_t t = blockIdx.x * (int64_t)THREADS + threadIdx.x;
+  if (t >= (int64_t)n * (c / 8)) return;
+  slot[threadIdx.x] = ld16(x + t * 8);
+  float acc[8], f[8];
 #pragma unroll
-  for (int i = 0; i < (TK * TN) / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int nn = idx % TN;
-    const int kk = idx / TN;
-    const int o = n0 + nn;
-    Bs[kk][nn] = (kk < rows && o < co) ? __bfloat162float(w[(rbase + kk) * co + o]) : 0.f;
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  auto body = [&]() {
+    unpack8(lds16(slot + threadIdx.x), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] += f[e];
+  };
+  if (KT > 0) {
+#pragma unroll
+    for (int kq = 0; kq < KT; ++kq) body();
+  } else {
+#pragma unroll 1
+    for (int kq = 0; kq < k; ++kq) body();
   }
+  st32_once(out + t * 8, acc);
 }
 
-// acc += As^T @ Bs, 4x4 outputs per thread (gather_gemm_kernel's inner loop)
-__device__ __forceinline__ void fma_tile(float (*As)[TM + 1], float (*Bs)[TN],
-                                         float (*acc)[4], int tx, int ty) {
-#pragma unroll 8
-  for (int kk = 0; kk < TK; ++kk) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
+// dynamic: the lanes of a row are L = lanes_per_row consecutive lanes (a
+// power of two, one 16-byte piece each), a warp takes 32 / L rows at a time
+// and a block P2_ROWS or more rows in passes. The block's book slice is
+// staged once and each row's present entries moved to its front, 8 at a
+// time; then every lane loads its piece of P2_DEPTH present rows before it
+// adds them, in offset order (no load for an absent entry), and stores its
+// 8 sums as two 16-byte stores. KT = 27: the loop over a row's entries
+// unrolled; KT = 0: rolled.
+template <int KT>
+__global__ void __launch_bounds__(THREADS)
+gather_sum_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ nbr,
+                  float* __restrict__ out, int n_out, int k, int c, int lanes_per_row,
+                  int block_rows) {
+  extern __shared__ __align__(16) int32_t p2_book[];  // [block_rows][k], then count
+  int* count = p2_book + block_rows * k;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int64_t u0 = (int64_t)blockIdx.x * block_rows;
+  const int rows = (int)min((int64_t)block_rows, n_out - u0);
+  const int piece = lane % lanes_per_row;
+  const int rpw = 32 / lanes_per_row;
 
-__device__ __forceinline__ void store_tile(float* __restrict__ out, float (*acc)[4],
-                                           int m0, int n0, int n_out, int co, int tx, int ty) {
+  stage_book(p2_book, nbr, u0, rows, k, tid, THREADS);
+  __syncthreads();
+  for (int r = tid; r < rows; r += THREADS) {
+    int32_t* row = p2_book + r * k;
+    int n = 0;
+    for (int k0 = 0; k0 < k; k0 += 8) {  // read 8, then write: no write passes an unread entry
+      int32_t e[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = m0 + ty + 16 * i;
-    if (u >= n_out) continue;
+      for (int i = 0; i < 8; ++i) e[i] = k0 + i < k ? row[k0 + i] : -1;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = n0 + tx + 16 * j;
-      if (o < co) out[(int64_t)u * co + o] = acc[i][j];
+      for (int i = 0; i < 8; ++i)
+        if (e[i] >= 0) row[n++] = e[i];
     }
+    count[r] = n;
+  }
+  __syncthreads();
+
+  for (int r0 = warp * rpw; r0 < rows; r0 += (THREADS / 32) * rpw) {
+    const int r = r0 + lane / lanes_per_row;
+    const bool active = r < rows && piece < c / 8;
+    const int n = active ? count[r] : 0;
+    const int32_t* js = p2_book + r * k;
+    const bf16* xp = x + piece * 8;
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    // P2_DEPTH present rows: their loads first, then the adds
+    auto group = [&](int e0) {
+      uint4 v[P2_DEPTH];
+#pragma unroll
+      for (int d = 0; d < P2_DEPTH; ++d)
+        if (e0 + d < n) v[d] = ld16(xp + (int64_t)js[e0 + d] * c);
+#pragma unroll
+      for (int d = 0; d < P2_DEPTH; ++d) {
+        if (e0 + d < n) {
+          float f[8];
+          unpack8(v[d], f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] += f[e];
+        }
+      }
+    };
+    if (KT > 0) {
+#pragma unroll
+      for (int e0 = 0; e0 < KT; e0 += P2_DEPTH) {
+        if (e0 >= n) break;
+        group(e0);
+      }
+    } else {
+#pragma unroll 1
+      for (int e0 = 0; e0 < n; e0 += P2_DEPTH) group(e0);
+    }
+    if (active) st32_once(out + (u0 + r) * c + piece * 8, acc);
   }
 }
+
+// lanes per row: one 16-byte piece each, a power of two
+inline int p2_lanes_per_row(int c8) {
+  int l = 1;
+  while (l < c8) l *= 2;
+  return l;
+}
+
+constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use on sm_90
+
+// Allows KERNEL the whole of a block's shared memory, once per kernel: a
+// call per launch would stand between the caller's timing events and the
+// launch.
+template <auto KERNEL>
+cudaError_t allow_smem() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  return err;
+}
+
+template <int KT>
+cudaError_t p2_launch(int blocks, size_t smem, cudaStream_t st, const bf16* x, const int32_t* nbr,
+                      float* out, int n_out, int k, int c, int lpr, int block_rows) {
+  const cudaError_t err = allow_smem<gather_sum_kernel<KT>>();
+  if (err != cudaSuccess) return err;
+  gather_sum_kernel<KT><<<blocks, THREADS, smem, st>>>(x, nbr, out, n_out, k, c, lpr, block_rows);
+  return cudaSuccess;
+}
+
+// ------------------------------------------------------------------ P3, P4
 
 // ---- P3: the shifted-row product on wgmma
 
@@ -629,104 +770,320 @@ cudaError_t p3_launch(int steps, dim3 grid, int smem, cudaStream_t st, const bf1
   return cudaSuccess;
 }
 
-constexpr int SUB = 128;  // source rows staged per (block, k)
-constexpr int ONEHOT_SMEM_FLOATS = TK * (TM + 1) + TK * TN + SUB * TK + SUB * TM + TM + 4;
+// ---- P4: the conv with its gather as a one-hot product, on mma.sync
 
+constexpr int P4_ROWS = 128;   // output rows of a block: 8 warps x one 16-row strip
+constexpr int P4_WARPS = 8;    // consumer warps; one more warp starts the copies
+constexpr int P4_THREADS = (P4_WARPS + 1) * 32;
+constexpr int P4_SUB = 128;    // source rows of a window: 8 k16 tiles
+constexpr int P4_CHUNK = 64;   // channels of a chunk: G is 16 x 64 f32 a warp
+constexpr int P4_RING = 4;     // (offset, chunk) stages in flight
+constexpr int P4_MAX_K = 64;
+constexpr int P4_HEAD_BYTES = 1024;  // barriers, window starts, offsets with an entry;
+                                     // the stages behind start on a 1024-byte boundary
+constexpr int P4_WIN_BYTES = P4_SUB * P4_CHUNK * 2;  // a window chunk: 128 rows of 128 bytes
+
+__host__ __device__ inline int p4_ci16(int ci) { return (ci + 15) & ~15; }
+inline int p4_chunks(int ci) { return (p4_ci16(ci) + P4_CHUNK - 1) / P4_CHUNK; }
+// n16 column pairs of a block (2, 4, 6 or 8): BN = 16 x that, up to 128 columns
+inline int p4_pairs(int co) {
+  const int np = (min(co, 128) + 15) / 16;
+  return np + (np & 1);
+}
+inline int p4_smem_bytes(int k, int co) {
+  return P4_HEAD_BYTES + P4_RING * (P4_WIN_BYTES + P4_CHUNK * 16 * p4_pairs(co) * 2) +
+         P4_ROWS * k * 4;
+}
+
+// W [K, Ci, Co] -> wimg [Co tiles][K][chunks][4 k16 steps][NP pairs][32 lanes][8]:
+// for each (k16 step, pair of n8 tiles) the `mma.m16n8k16` B fragments of
+// all 32 lanes, lane l's 16 bytes at 16 l: {b0, b1} of tile 2p, then of tile
+// 2p + 1, b0 = (channels 2q, 2q + 1; column g), b1 = (2q + 8, 2q + 9; g),
+// g = l / 4, q = l % 4. Channels beyond Ci (the rest of the last chunk) and
+// columns beyond Co are zeros. A warp reads one such fragment pair with one
+// 16-byte load a lane, and a (k, chunk) slice of a Co tile is one bulk copy.
 __global__ void __launch_bounds__(THREADS)
-onehot_conv_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ nbr,
-                   const bf16* __restrict__ w, float* __restrict__ out,
-                   int32_t* __restrict__ far, int n_in, int n_out, int k, int ci, int co) {
-  extern __shared__ __align__(16) float sm[];
-  float (*As)[TM + 1] = reinterpret_cast<float (*)[TM + 1]>(sm);
-  float (*Bs)[TN] = reinterpret_cast<float (*)[TN]>(sm + TK * (TM + 1));
-  float (*Sub)[TK] = reinterpret_cast<float (*)[TK]>(sm + TK * (TM + 1) + TK * TN);
-  float (*OHt)[TM] = reinterpret_cast<float (*)[TM]>(sm + TK * (TM + 1) + TK * TN + SUB * TK);
-  int* jrow = reinterpret_cast<int*>(sm + TK * (TM + 1) + TK * TN + SUB * TK + SUB * TM);
-  int* s_start = jrow + TM;
+pack_onehot_w_kernel(const bf16* __restrict__ w, bf16* __restrict__ wimg, int k, int ci, int co,
+                     int np, int nchunks, int64_t total) {
+  const int64_t idx = blockIdx.x * (int64_t)THREADS + threadIdx.x;
+  if (idx >= total) return;
+  const int e = (int)(idx % 8);
+  int64_t rest = idx / 8;
+  const int l = (int)(rest % 32);
+  rest /= 32;
+  const int p = (int)(rest % np);
+  rest /= np;
+  const int s = (int)(rest % 4);
+  rest /= 4;
+  const int c = (int)(rest % nchunks);
+  rest /= nchunks;
+  const int kq = (int)(rest % k);
+  const int nt = (int)(rest / k);
+  const int cc = c * P4_CHUNK + s * 16 + 2 * (l % 4) + (e & 1) + ((e >> 1) & 1) * 8;
+  const int o = nt * 16 * np + 8 * (2 * p + (e >> 2)) + l / 4;
+  wimg[idx] = cc < ci && o < co ? w[((int64_t)kq * ci + cc) * co + o] : __float2bfloat16(0.f);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + P4_SUB) x channels [c0, c0 + 64) of x through its tensor map
+// (128-byte swizzle: the 16-byte piece p of window row r lands at piece
+// p ^ (r % 8)); rows beyond N_in and channels beyond Ci arrive as zeros
+__device__ __forceinline__ void tma_window(void* dst, const CUtensorMap* map, int c0, int r0,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3}], [%4];\n" ::"r"(gcd::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(gcd::smem_addr(bar))
+      : "memory");
+}
+
+// NP: n16 column pairs of the block (BN = 16 NP output columns).
+template <int NP>
+__global__ void __launch_bounds__(P4_THREADS, 1)
+onehot_conv_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ x,
+                   const int32_t* __restrict__ nbr, const bf16* __restrict__ wimg,
+                   float* __restrict__ out, int32_t* __restrict__ far, int n_out, int k, int ci,
+                   int co) {
+  constexpr int BN = 16 * NP;
+  constexpr int W_STAGE = P4_CHUNK * BN;  // bf16 values of W a stage holds
+  extern __shared__ __align__(1024) unsigned char p4_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(p4_smem);  // [P4_RING]
+  uint64_t* empty = full + P4_RING;                         // [P4_RING]
+  int* s_nlist = reinterpret_cast<int*>(empty + P4_RING);
+  int* s_start = s_nlist + 1;  // [k]: the window's first row, -1: no entry at that offset
+  int* s_list = s_start + k;   // [k]: the offsets with an entry
+  unsigned char* win = p4_smem + P4_HEAD_BYTES;                   // [P4_RING][P4_WIN_BYTES]
+  bf16* ring = reinterpret_cast<bf16*>(win + P4_RING * P4_WIN_BYTES);  // [P4_RING][W_STAGE]
+  int32_t* s_nbr = reinterpret_cast<int32_t*>(ring + P4_RING * W_STAGE);  // [P4_ROWS][k]
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int q = tid; q < SUB * TM; q += THREADS) (&OHt[0][0])[q] = 0.f;
-  int far_local = 0;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int m0 = blockIdx.x * P4_ROWS;
+  const int nt = blockIdx.y;
+  const int ci16 = p4_ci16(ci);
+  const int nchunks = (ci16 + P4_CHUNK - 1) / P4_CHUNK;
 
-  for (int kq = 0; kq < k; ++kq) {
-    if (tid == 0) *s_start = INT_MAX;
-    __syncthreads();
-    int myj = -1;
-    if (tid < TM) {
-      const int u = m0 + tid;
-      if (u < n_out) myj = nbr[(int64_t)u * k + kq];
-      jrow[tid] = myj;
-      if (myj >= 0) atomicMin(s_start, myj);
+  // ---- the block's book slice (rows beyond N_out absent), barriers
+  {
+    const int64_t base = (int64_t)m0 * k;
+    const int64_t total = (int64_t)n_out * k;
+    for (int e = tid; e < P4_ROWS * k; e += P4_THREADS)
+      s_nbr[e] = base + e < total ? nbr[base + e] : -1;
+    if (tid == 0) {
+      for (int s = 0; s < P4_RING; ++s) {
+        gcd::mbar_init(full + s, 1);
+        gcd::mbar_init(empty + s, P4_WARPS);
+      }
+      gcd::fence_barrier_init();
     }
-    __syncthreads();
-    const int start = *s_start;
-    __syncthreads();  // every thread has read it before thread 0 resets it
-    if (start == INT_MAX) continue;  // no entry at this offset in this block
-    const bool inside = myj >= 0 && myj - start < SUB;
-    if (inside) OHt[myj - start][tid] = 1.f;
-    if (myj >= 0 && !inside) ++far_local;
-
-    for (int c0 = 0; c0 < ci; c0 += TK) {
-      // the sub-window's rows [start, start + SUB), channels [c0, c0 + TK)
-      for (int q = tid; q < SUB * (TK / 8); q += THREADS) {
-        const int s = q / (TK / 8);
-        const int g = q % (TK / 8);
-        const int src = start + s;
-        const int cc = c0 + g * 8;
-        float f[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = 0.f;
-        if (src < n_in && cc < ci) unpack8(ld16(x + (int64_t)src * ci + cc), f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) Sub[s][g * 8 + e] = f[e];
-      }
-      load_b_tile(Bs, w, (int64_t)kq * ci + c0, min(TK, ci - c0), n0, co, tid);
-      __syncthreads();
-
-      // G = onehot(rel) @ sub: thread -> rows ty + 16 i, channels tx + 16 j
-      float gsum[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gsum[i][0] = gsum[i][1] = 0.f;
-#pragma unroll 8
-      for (int s = 0; s < SUB; ++s) {
-        const float b0 = Sub[s][tx], b1 = Sub[s][tx + 16];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = OHt[s][ty + 16 * i];
-          gsum[i][0] = fmaf(a, b0, gsum[i][0]);
-          gsum[i][1] = fmaf(a, b1, gsum[i][1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = ty + 16 * i;
-        const int j = jrow[m];
-        const bool is_far = j >= 0 && j - start >= SUB;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int kk = tx + 16 * jj;
-          float v = gsum[i][jj];
-          if (is_far) v = (c0 + kk < ci) ? __bfloat162float(x[(int64_t)j * ci + c0 + kk]) : 0.f;
-          As[kk][m] = v;
-        }
-      }
-      __syncthreads();
-      fma_tile(As, Bs, acc, tx, ty);
-      __syncthreads();
-    }
-    if (inside) OHt[myj - start][tid] = 0.f;
   }
-  store_tile(out, acc, m0, n0, n_out, co, tx, ty);
-  if (blockIdx.y == 0 && far_local) atomicAdd(far, far_local);
+  __syncthreads();
+  // ---- per offset, the window starts at the block's smallest present entry
+  // (absent, -1, is the largest unsigned)
+  for (int kq = warp; kq < k; kq += P4_WARPS + 1) {
+    unsigned m = UINT_MAX;
+    for (int r = lane; r < P4_ROWS; r += 32) m = min(m, (unsigned)s_nbr[r * k + kq]);
+    m = __reduce_min_sync(0xffffffffu, m);
+    if (lane == 0) s_start[kq] = m == UINT_MAX ? -1 : (int)m;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int kq = 0; kq < k; ++kq)
+      if (s_start[kq] >= 0) s_list[n++] = kq;
+    *s_nlist = n;
+  }
+  __syncthreads();
+  const int nlist = *s_nlist;
+
+  if (warp == P4_WARPS) {
+    // ---- the copies, one thread: per (offset with an entry, chunk) a stage of
+    // the ring, the window chunk through the tensor map and W's slice as one
+    // bulk copy, into a slot the strips have left. Slots and phases counted up.
+    if (lane == 0) {
+      int s = 0, ph = 0, n = 0;
+      const size_t k_stride = (size_t)nchunks * W_STAGE;
+      const bf16* w_tile = wimg + (size_t)nt * k * k_stride;
+      for (int i = 0; i < nlist; ++i) {
+        const int kq = s_list[i];
+        for (int c = 0; c < nchunks; ++c) {
+          if (n >= P4_RING) gcd::mbar_wait(empty + s, ph ^ 1);
+          gcd::mbar_arrive_expect_tx(full + s, P4_WIN_BYTES + W_STAGE * 2);
+          tma_window(win + (size_t)s * P4_WIN_BYTES, &xmap, c * P4_CHUNK, s_start[kq], full + s);
+          gcd::bulk_g2s(ring + (size_t)s * W_STAGE, w_tile + kq * k_stride + (size_t)c * W_STAGE,
+                        W_STAGE * 2, full + s);
+          ++n;
+          if (++s == P4_RING) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- warp `warp` owns block rows 16 warp .. 16 warp + 15; with g = lane / 4,
+  // q = lane % 4 this lane's A / C rows are r_lo = 16 warp + g and r_lo + 8
+  const int g = lane / 4, q = lane % 4;
+  const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
+  constexpr uint32_t ONE = 0x3f80u;  // bf16 1.0
+  float acc[2 * NP][4];
+#pragma unroll
+  for (int t = 0; t < 2 * NP; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  int far_local = 0;
+  int s = 0, ph = 0;
+
+  for (int i = 0; i < nlist; ++i) {
+    const int kq = s_list[i];
+    const int st = s_start[kq];
+    const int j_lo = s_nbr[r_lo * k + kq], j_hi = s_nbr[r_hi * k + kq];
+    // window row of each entry; an absent or outside entry matches no column
+    const unsigned rel_lo = (unsigned)(j_lo - st), rel_hi = (unsigned)(j_hi - st);
+    const bool in_lo = j_lo >= 0 && rel_lo < P4_SUB, in_hi = j_hi >= 0 && rel_hi < P4_SUB;
+    const bool far_lo = j_lo >= 0 && !in_lo, far_hi = j_hi >= 0 && !in_hi;
+    const bool strip = __any_sync(0xffffffffu, j_lo >= 0 || j_hi >= 0);
+    const bool any_far = __any_sync(0xffffffffu, far_lo || far_hi);
+    // the k16 tiles of the window that hold an entry of this strip
+    const unsigned tiles = __reduce_or_sync(
+        0xffffffffu, (in_lo ? 1u << (rel_lo >> 4) : 0u) | (in_hi ? 1u << (rel_hi >> 4) : 0u));
+    if (q == 0 && nt == 0) far_local += (int)far_lo + (int)far_hi;
+
+    for (int c = 0; c < nchunks; ++c) {
+      gcd::mbar_wait(full + s, ph);
+      const int cw = min(P4_CHUNK, ci16 - c * P4_CHUNK);  // a multiple of 16
+      if (strip) {
+        // G = onehot(rel) @ window[:, chunk]: exact, one non-zero term a value
+        float gc[8][4];
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gc[t][e] = 0.f;
+        const unsigned char* wb = win + (size_t)s * P4_WIN_BYTES;
+        for (unsigned tl = tiles; tl; tl &= tl - 1) {
+          const int kt = __ffs(tl) - 1;
+          const unsigned col = kt * 16 + 2 * q;
+          uint32_t a[4];
+          a[0] = (rel_lo == col ? ONE : 0u) | (rel_lo == col + 1 ? ONE << 16 : 0u);
+          a[1] = (rel_hi == col ? ONE : 0u) | (rel_hi == col + 1 ? ONE << 16 : 0u);
+          a[2] = (rel_lo == col + 8 ? ONE : 0u) | (rel_lo == col + 9 ? ONE << 16 : 0u);
+          a[3] = (rel_hi == col + 8 ? ONE : 0u) | (rel_hi == col + 9 ? ONE << 16 : 0u);
+          const int row = kt * 16 + (lane & 15);
+          const unsigned char* brow = wb + row * 128;
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            if (16 * p < cw) {
+              uint32_t bb[4];
+              gcd::ldmatrix_x4_trans(bb, brow + (((2 * p + (lane >> 4)) ^ (row & 7)) << 4));
+              gcd::mma_bf16_16816(gc[2 * p], a, bb[0], bb[1]);
+              gcd::mma_bf16_16816(gc[2 * p + 1], a, bb[2], bb[3]);
+            }
+          }
+        }
+        // entries outside the window: their rows of G read from x directly
+        if (any_far) {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const int ch = c * P4_CHUNK + 8 * t + 2 * q;  // even; ch < Ci implies ch + 1 < Ci
+            if (8 * t < cw && ch < ci) {
+              if (far_lo) {
+                const float2 v = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)j_lo * ci + ch));
+                gc[t][0] = v.x;
+                gc[t][1] = v.y;
+              }
+              if (far_hi) {
+                const float2 v = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)j_hi * ci + ch));
+                gc[t][2] = v.x;
+                gc[t][3] = v.y;
+              }
+            }
+          }
+          __syncwarp();
+        }
+        // out += G @ W[k][chunk]: G's C fragments of n8 tiles 2s, 2s + 1 are
+        // the A fragment of k16 step s, packed to bf16 without rounding
+        const bf16* wst = ring + (size_t)s * W_STAGE;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if (16 * ks < cw) {
+            const uint32_t a[4] = {pack_bf16x2(gc[2 * ks][0], gc[2 * ks][1]),
+                                   pack_bf16x2(gc[2 * ks][2], gc[2 * ks][3]),
+                                   pack_bf16x2(gc[2 * ks + 1][0], gc[2 * ks + 1][1]),
+                                   pack_bf16x2(gc[2 * ks + 1][2], gc[2 * ks + 1][3])};
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              const uint4 bw =
+                  *reinterpret_cast<const uint4*>(wst + ((size_t)(ks * NP + p) * 32 + lane) * 8);
+              gcd::mma_bf16_16816(acc[2 * p], a, bw.x, bw.y);
+              gcd::mma_bf16_16816(acc[2 * p + 1], a, bw.z, bw.w);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) gcd::mbar_arrive(empty + s);
+      if (++s == P4_RING) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  }
+
+  far_local = __reduce_add_sync(0xffffffffu, far_local);
+  if (lane == 0 && far_local) atomicAdd(far, far_local);
+  const bool pairs = co % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int u = m0 + r_lo + 8 * h;
+    if (u >= n_out) continue;
+    float* orow = out + (size_t)u * co;
+#pragma unroll
+    for (int t = 0; t < 2 * NP; ++t) {
+      const int o = nt * BN + 8 * t + 2 * q;
+      const float v0 = acc[t][2 * h], v1 = acc[t][2 * h + 1];
+      if (pairs && o + 1 < co) {
+        *reinterpret_cast<float2*>(orow + o) = make_float2(v0, v1);
+      } else {
+        if (o < co) orow[o] = v0;
+        if (o + 1 < co) orow[o + 1] = v1;
+      }
+    }
+  }
+}
+
+template <int NP>
+cudaError_t p4_launch(dim3 grid, int smem, cudaStream_t st, const CUtensorMap& xmap, const bf16* x,
+                      const int32_t* nbr, const bf16* wimg, float* out, int32_t* far, int n_out,
+                      int k, int ci, int co) {
+  const cudaError_t err = allow_smem<onehot_conv_kernel<NP>>();
+  if (err != cudaSuccess) return err;
+  onehot_conv_kernel<NP><<<grid, P4_THREADS, smem, st>>>(xmap, x, nbr, wimg, out, far, n_out, k,
+                                                         ci, co);
+  return cudaSuccess;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda);
+// null where it is missing
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (PFN_cuTensorMapEncodeTiled_v12000) nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }();
+  return fn;
 }
 
 }  // namespace
@@ -748,32 +1105,45 @@ extern "C" int gcd_window_sum(const void* x, const void* ws, void* out, int n, i
   return (int)cudaGetLastError();
 }
 
-// mode 0: dynamic, 1: static, 2: index_only (out is int32 [n_out])
+// mode 0: dynamic, 1: static, 2: index_only (out is int32 [n_out]); x 16-byte
+// aligned (modes 0, 1), C % 8 == 0, unroll only with k == 27
 extern "C" int gcd_gather_sum(const void* x, const void* nbr, void* out, int n_out, int k, int c,
                               int mode, int unroll, void* stream) {
   if (n_out > 0) {
     const bf16* xp = (const bf16*)x;
     const int32_t* np = (const int32_t*)nbr;
     cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err;
     if (mode == 2) {
-      const int blocks = (n_out + THREADS - 1) / THREADS;
-      if (unroll)
-        index_sum_kernel<27><<<blocks, THREADS, 0, st>>>(np, (int32_t*)out, n_out, k);
-      else
-        index_sum_kernel<0><<<blocks, THREADS, 0, st>>>(np, (int32_t*)out, n_out, k);
-    } else {
+      const size_t smem = (size_t)P2_INDEX_ROWS * k * sizeof(int32_t);
+      if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+      const int blocks = (n_out + P2_INDEX_ROWS - 1) / P2_INDEX_ROWS;
+      if (unroll) {
+        err = allow_smem<index_sum_kernel<27>>();
+        if (err == cudaSuccess) index_sum_kernel<27><<<blocks, THREADS, smem, st>>>(np, (int32_t*)out, n_out, k);
+      } else {
+        err = allow_smem<index_sum_kernel<0>>();
+        if (err == cudaSuccess) index_sum_kernel<0><<<blocks, THREADS, smem, st>>>(np, (int32_t*)out, n_out, k);
+      }
+    } else if (mode == 1) {
+      if ((uintptr_t)x & 15u) return (int)cudaErrorInvalidValue;
       const int64_t threads = (int64_t)n_out * (c / 8);
       const int blocks = (int)((threads + THREADS - 1) / THREADS);
-      float* op = (float*)out;
-      if (mode == 0 && unroll)
-        gather_sum_kernel<27, false><<<blocks, THREADS, 0, st>>>(xp, np, op, n_out, k, c);
-      else if (mode == 0)
-        gather_sum_kernel<0, false><<<blocks, THREADS, 0, st>>>(xp, np, op, n_out, k, c);
-      else if (unroll)
-        gather_sum_kernel<27, true><<<blocks, THREADS, 0, st>>>(xp, np, op, n_out, k, c);
+      if (unroll)
+        static_sum_kernel<27><<<blocks, THREADS, 0, st>>>(xp, (float*)out, n_out, k, c);
       else
-        gather_sum_kernel<0, true><<<blocks, THREADS, 0, st>>>(xp, np, op, n_out, k, c);
+        static_sum_kernel<0><<<blocks, THREADS, 0, st>>>(xp, (float*)out, n_out, k, c);
+      err = cudaSuccess;
+    } else {
+      const int lpr = p2_lanes_per_row(c / 8);
+      const int block_rows = max(P2_ROWS, (THREADS / 32) * (32 / lpr));
+      const size_t smem = (size_t)block_rows * (k + 1) * sizeof(int32_t);
+      if (smem > SMEM_LIMIT || ((uintptr_t)x & 15u)) return (int)cudaErrorInvalidValue;
+      const int blocks = (n_out + block_rows - 1) / block_rows;
+      err = (unroll ? p2_launch<27> : p2_launch<0>)(blocks, smem, st, xp, np, (float*)out, n_out,
+                                                     k, c, lpr, block_rows);
     }
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
@@ -813,18 +1183,54 @@ extern "C" int gcd_tile_gemm(const void* x, const void* w, void* wimg, void* out
   return (int)cudaGetLastError();
 }
 
-extern "C" int gcd_onehot_conv(const void* x, const void* nbr, const void* w, void* out,
+// bf16 values of the scratch `wimg` that gcd_onehot_conv needs, or -1 for a
+// (K, Ci, Co) it does not serve: K 1 .. 64, Ci a multiple of 8
+extern "C" int gcd_onehot_conv_scratch(int k, int ci, int co) {
+  if (k < 1 || k > P4_MAX_K || ci < 8 || ci % 8 || co < 1) return -1;
+  const int bn = 16 * p4_pairs(co);
+  const int64_t elems = (int64_t)((co + bn - 1) / bn) * k * p4_chunks(ci) * P4_CHUNK * bn;
+  return elems > INT_MAX ? -1 : (int)elems;
+}
+
+// x and wimg 16-byte aligned; wimg: gcd_onehot_conv_scratch values; far: an
+// int32 the kernel adds the count of entries outside their window to
+extern "C" int gcd_onehot_conv(const void* x, const void* nbr, const void* w, void* wimg, void* out,
                                void* far, int n_in, int n_out, int k, int ci, int co,
                                void* stream) {
-  if (n_out > 0 && co > 0) {
-    const size_t smem = ONEHOT_SMEM_FLOATS * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(onehot_conv_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int64_t elems = gcd_onehot_conv_scratch(k, ci, co);
+  if (elems < 0 || ((uintptr_t)x & 15u) || ((uintptr_t)wimg & 15u)) return (int)cudaErrorInvalidValue;
+  if (n_out > 0) {
+    const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+    if (!encode) return (int)cudaErrorNotSupported;
+    // x as a 2-D tensor [N_in rows][Ci channels] of bf16, read in boxes of
+    // 128 rows x 64 channels (128-byte rows) under the 128-byte swizzle;
+    // what lies outside x arrives as zeros
+    CUtensorMap xmap;
+    const cuuint64_t dims[2] = {(cuuint64_t)ci, (cuuint64_t)(n_in > 0 ? n_in : 1)};
+    const cuuint64_t strides[1] = {(cuuint64_t)ci * sizeof(bf16)};
+    const cuuint32_t box[2] = {P4_CHUNK, P4_SUB};
+    const cuuint32_t unit[2] = {1, 1};
+    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides, box,
+               unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int np = p4_pairs(co);
+    pack_onehot_w_kernel<<<(unsigned)((elems + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+        (const bf16*)w, (bf16*)wimg, k, ci, co, np, p4_chunks(ci), elems);
+    const dim3 grid((n_out + P4_ROWS - 1) / P4_ROWS, (co + 16 * np - 1) / (16 * np));
+    const int smem = p4_smem_bytes(k, co);
+    const bf16* xp = (const bf16*)x;
+    const int32_t* nb = (const int32_t*)nbr;
+    const bf16* wi = (const bf16*)wimg;
+    float* op = (float*)out;
+    int32_t* fp = (int32_t*)far;
+    const cudaError_t err =
+        np == 2   ? p4_launch<2>(grid, smem, st, xmap, xp, nb, wi, op, fp, n_out, k, ci, co)
+        : np == 4 ? p4_launch<4>(grid, smem, st, xmap, xp, nb, wi, op, fp, n_out, k, ci, co)
+        : np == 6 ? p4_launch<6>(grid, smem, st, xmap, xp, nb, wi, op, fp, n_out, k, ci, co)
+                  : p4_launch<8>(grid, smem, st, xmap, xp, nb, wi, op, fp, n_out, k, ci, co);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((n_out + TM - 1) / TM, (co + TN - 1) / TN);
-    onehot_conv_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const int32_t*)nbr, (const bf16*)w, (float*)out, (int32_t*)far, n_in,
-        n_out, k, ci, co);
   }
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,8 @@ SIGNATURES = {
     "gcd_gather_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gcd_tile_gemm_scratch": (_I, _I, _I),
     "gcd_tile_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "gcd_onehot_conv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gcd_onehot_conv_scratch": (_I, _I, _I),
+    "gcd_onehot_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -17,11 +17,15 @@ be held to a plain version:
   P3 `tile_gemm`    the product without the gather, on the tensor cores
                     (`wgmma`), x staged once per block of rows:
                     out[u] = sum_k x[clip(u + k - K // 2, 0, N - 1)] @ W[k]
-  P4 `onehot_conv`  the conv itself with the gather done as a product,
-                    G = onehot(rel) @ sub over a staged sub-window per (row
-                    block, k), then G @ W[k]; entries outside the sub-window
-                    are gathered directly, so the result is the conv's for
-                    every entry: out[u] = sum_k x[nbr[u, k]] @ W[k]
+  P4 `onehot_conv`  the conv itself with the gather done as a product on
+                    the tensor cores: per (block of `ONEHOT_ROWS` rows, k)
+                    a window of `ONEHOT_SUBWIN` source rows from the block's
+                    smallest present entry, G = onehot(rel) @ window with
+                    the one-hot built in registers and only the k16 tiles
+                    that hold an entry multiplied (`onehot_tiles_plain`),
+                    then G @ W[k]; entries outside the window are gathered
+                    directly (`onehot_far_plain`), so the result is the
+                    conv's for every entry: out[u] = sum_k x[nbr[u, k]] @ W[k]
 
 Activations and weights are bf16, books and window starts int32, sums and
 outputs f32. Each wrapper takes its plain version only for tensors on the
@@ -44,8 +48,10 @@ TILE_ROWS = 128  # rows per tile of the "tiles" layout
 STAGE_ROWS = 32  # rows of a window staged per chunk (P1)
 MAX_CHANNELS = 256  # P1, P2: one block covers all channels of a row
 INDEX_MODES = ("dynamic", "static", "index_only")
-ONEHOT_ROWS = 64  # P4: output rows per block
-ONEHOT_SUBWIN = 128  # P4: source rows staged per (block, k)
+ONEHOT_ROWS = 128  # P4: output rows per block (8 strips of 16)
+ONEHOT_SUBWIN = 128  # P4: source rows staged per (block, k): 8 k16 tiles
+ONEHOT_STRIP = 16  # P4: rows of a strip, and of a k16 tile of the window
+ONEHOT_MAX_K = 64  # P4: the block's book slice fits beside the stages
 
 
 # ---------------------------------------------------------------- layouts
@@ -174,6 +180,8 @@ def gather_sum(x: torch.Tensor, nbr: torch.Tensor, index: str = "dynamic",
         raise ValueError(f"gather_sum: C must be a multiple of 8 up to {MAX_CHANNELS}, got {c}")
     if unroll and k != 27:
         raise ValueError(f"gather_sum: the unrolled loop is built for K = 27, got {k}")
+    if index != "index_only" and x.data_ptr() % 16:
+        raise ValueError("gather_sum: x must be 16-byte aligned")
     if index == "index_only":
         out = torch.empty((n_out, 1), dtype=torch.int32, device=dev)
     else:
@@ -264,25 +272,50 @@ tile_gemm.launches = 0
 
 # ---------------------------------------------------------------- P4
 
-def onehot_far_plain(nbr: torch.Tensor) -> torch.Tensor:
-    """How many entries of `nbr` P4 gathers directly: per (block of
-    `ONEHOT_ROWS` rows, k) the sub-window starts at the smallest present
-    entry, and an entry `ONEHOT_SUBWIN` rows or more above it is outside."""
+def _onehot_blocks(nbr: torch.Tensor):
+    """(nbr as [blocks, ONEHOT_ROWS, K] padded with -1, each (block, k)'s
+    window start: its smallest present entry, int32 max where none)."""
     n, k = nbr.shape
     pad = -n % ONEHOT_ROWS
     blocks = torch.nn.functional.pad(nbr, (0, 0, 0, pad), value=-1).view(-1, ONEHOT_ROWS, k)
     big = torch.iinfo(torch.int32).max
-    start = torch.where(blocks >= 0, blocks, big).amin(1, keepdim=True)
+    return blocks, torch.where(blocks >= 0, blocks, big).amin(1, keepdim=True)
+
+
+def onehot_far_plain(nbr: torch.Tensor) -> torch.Tensor:
+    """How many entries of `nbr` P4 gathers directly: per (block of
+    `ONEHOT_ROWS` rows, k) the window starts at the smallest present entry,
+    and an entry `ONEHOT_SUBWIN` rows or more above it is outside."""
+    blocks, start = _onehot_blocks(nbr)
     return ((blocks >= 0) & (blocks.long() - start >= ONEHOT_SUBWIN)).sum().int()
+
+
+def onehot_tiles_plain(nbr: torch.Tensor) -> torch.Tensor:
+    """[strips, K] int32: how many k16 tiles of its (block, k) window hold an
+    entry of each 16-row strip: the one-hot products P4 runs for that
+    (strip, offset); 0 for a strip without an entry inside its window."""
+    blocks, start = _onehot_blocks(nbr)
+    rel = blocks.long() - start
+    inside = (blocks >= 0) & (rel < ONEHOT_SUBWIN)
+    tile = torch.where(inside, rel // ONEHOT_STRIP, ONEHOT_SUBWIN // ONEHOT_STRIP)
+    nb, _, k = blocks.shape
+    strips = tile.view(nb, ONEHOT_ROWS // ONEHOT_STRIP, ONEHOT_STRIP, k).transpose(2, 3)
+    hit = torch.zeros(strips.shape[:3] + (ONEHOT_SUBWIN // ONEHOT_STRIP + 1,), dtype=torch.bool,
+                      device=nbr.device)
+    hit.scatter_(3, strips, True)
+    return hit[..., :-1].sum(3).int().view(-1, k)[: -(-nbr.shape[0] // ONEHOT_STRIP)]
 
 
 def onehot_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor):
     """P4: (out [N_out, Co] f32 = sum_k x[nbr[:, k]] @ w[k], far): the conv
-    with each (row block, k) gather computed as `onehot(rel) @ sub` over a
-    staged sub-window of `ONEHOT_SUBWIN` source rows. `far` (int32 scalar) is
-    the number of entries outside their sub-window, gathered directly.
+    with each (row block, k) gather computed as `onehot(rel) @ window` on
+    the tensor cores over a staged window of `ONEHOT_SUBWIN` source rows.
+    `far` (int32 scalar) is the number of entries outside their window,
+    gathered directly.
 
-    x [N_in, Ci], nbr int32 [N_out, K], w [K, Ci, Co]."""
+    x [N_in, Ci], nbr int32 [N_out, K], w [K, Ci, Co]. On the card: Ci a
+    multiple of 8, K up to `ONEHOT_MAX_K`, x 16-byte aligned; anything else
+    is refused with the reason."""
     if x.device.type == "cpu":
         return gather_conv(x, nbr, w), onehot_far_plain(nbr)
     dev = _cuda_device(x, "onehot_conv")
@@ -290,14 +323,24 @@ def onehot_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor):
     _check(nbr, "nbr", torch.int32, 2, dev)
     _check(w, "w", torch.bfloat16, 3, dev)
     k, ci, co = w.shape
-    if k != nbr.shape[1] or ci != x.shape[1] or ci % 8:
+    if k != nbr.shape[1] or ci != x.shape[1] or ci % 8 or ci < 8 \
+            or not 0 < k <= ONEHOT_MAX_K or co < 1:
         raise ValueError(f"onehot_conv: x {tuple(x.shape)}, nbr {tuple(nbr.shape)}, "
-                         f"w {tuple(w.shape)} do not agree, or Ci is not a multiple of 8")
+                         f"w {tuple(w.shape)} do not agree, or Ci is not a multiple of 8, "
+                         f"or K is not in 1 .. {ONEHOT_MAX_K}")
+    if x.data_ptr() % 16:
+        raise ValueError("onehot_conv: x must be 16-byte aligned")
+    lib = _build.library()
+    scratch = lib.gcd_onehot_conv_scratch(k, ci, co)
+    if scratch < 0:
+        raise ValueError(f"onehot_conv: the kernel refuses K {k}, Ci {ci}, Co {co}")
+    wimg = torch.empty(scratch, dtype=torch.bfloat16, device=dev)  # W as the lanes read it
     out = torch.empty((nbr.shape[0], co), dtype=torch.float32, device=dev)
     far = torch.zeros((), dtype=torch.int32, device=dev)
-    rc = _build.library().gcd_onehot_conv(
-        x.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(), far.data_ptr(),
-        x.shape[0], nbr.shape[0], k, ci, co, torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib.gcd_onehot_conv(
+        x.data_ptr(), nbr.data_ptr(), w.data_ptr(), wimg.data_ptr(), out.data_ptr(),
+        far.data_ptr(), x.shape[0], nbr.shape[0], k, ci, co,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "onehot_conv")
     onehot_conv.launches += 1
     return out, far

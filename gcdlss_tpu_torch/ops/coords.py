@@ -62,12 +62,15 @@ def _unique_from_sorted(sk: torch.Tensor, order: torch.Tensor, capacity: int):
     count = (first & valid_sorted).sum().to(torch.int32)
     keep = valid_sorted & (gid < capacity)
     gid_clamped = torch.where(keep, gid, capacity).to(torch.int32)
-    # the first row of each group is its first occurrence (stable order)
-    head = first & keep
-    uniq = torch.full((capacity,), sentinel, dtype=torch.int64, device=dev)
-    rep = torch.full((capacity,), n, dtype=torch.int32, device=dev)
-    uniq[gid[head].long()] = sk[head]
-    rep[gid[head].long()] = order[head].to(torch.int32)
+    # the first row of each group is its first occurrence (stable order). Every
+    # sorted position writes: a head to its group's slot, the rest to one slot
+    # past the end, which is dropped (a boolean index would wait for its count)
+    slot = torch.where(first & keep, gid, capacity).long()
+    uniq = torch.full((capacity + 1,), sentinel, dtype=torch.int64, device=dev)
+    rep = torch.full((capacity + 1,), n, dtype=torch.int32, device=dev)
+    uniq[slot] = sk
+    rep[slot] = order.to(torch.int32)
+    uniq, rep = uniq[:capacity], rep[:capacity]
     uh = (uniq >> 32).to(torch.int32)
     ul = (uniq & 0xFFFFFFFF).to(torch.int32)
     return (uh, ul), rep, gid_clamped, count
@@ -115,14 +118,15 @@ def sorted_unique_presorted(hi: torch.Tensor, lo: torch.Tensor, capacity: int):
     n = hi.shape[0]
     dev = hi.device
     valid = hi != SENTINEL_HI
-    rows = torch.nonzero(valid).squeeze(1)
-    m = rows.shape[0]
+    # the valid rows, compacted in order: row i goes to position pos[i]; the
+    # invalid rows all write one slot past the end, which is dropped
+    pos = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = torch.where(valid, pos, n).long()
     sentinel = (SENTINEL_HI << 32) | SENTINEL_LO
-    sk = torch.full((n,), sentinel, dtype=torch.int64, device=dev)
-    sk[:m] = pack_keys(hi[rows], lo[rows])
-    order = torch.full((n,), n, dtype=torch.int64, device=dev)
-    order[:m] = rows
-    (uh, ul), rep, gid_clamped, count = _unique_from_sorted(sk, order, capacity)
-    inverse = torch.full((n,), capacity, dtype=torch.int32, device=dev)
-    inverse[rows] = gid_clamped[:m]
+    sk = torch.full((n + 1,), sentinel, dtype=torch.int64, device=dev)
+    sk[slot] = pack_keys(hi, lo)
+    order = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    order[slot] = torch.arange(n, dtype=torch.int64, device=dev)
+    (uh, ul), rep, gid_clamped, count = _unique_from_sorted(sk[:n], order[:n], capacity)
+    inverse = torch.where(valid, gid_clamped[slot.clamp(max=n - 1)], capacity).to(torch.int32)
     return (uh, ul), rep, inverse, count

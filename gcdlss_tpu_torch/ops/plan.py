@@ -46,14 +46,6 @@ def _offsets(k: int) -> np.ndarray:
     return np.array(list(itertools.product(r, r, r)), dtype=np.int32)
 
 
-KERNEL_OFFSETS_3 = _offsets(3)  # [27, 3], z fastest
-KERNEL_OFFSETS_5 = _offsets(5)  # [125, 3]
-# the 27 k=3 offsets are a subset of the 125 k=5 stem offsets
-K3_IN_K5 = np.array(
-    [np.where((KERNEL_OFFSETS_5 == off).all(axis=1))[0][0] for off in KERNEL_OFFSETS_3],
-    np.int64)
-
-
 class LevelPlan(NamedTuple):
     coords: torch.Tensor  # [cap, 4] int32 (b, x, y, z) in stride units
     valid: torch.Tensor  # [cap] bool
@@ -199,7 +191,8 @@ def build_unet_plan(coords: torch.Tensor, valid: torch.Tensor, caps: tuple,
         lcoords = torch.where(lvalid[:, None], decode_keys(kh, kl), 0)
         if lev == 0:
             stem_nbr = neighbor_map(kh, kl, 5, plan_kernel)
-            nbr3 = stem_nbr[:, torch.as_tensor(K3_IN_K5, device=dev)]
+            # the 27 k = 3 offsets are the inner 3^3 cube of the 125 (z fastest)
+            nbr3 = stem_nbr.view(cap, 5, 5, 5)[:, 1:4, 1:4, 1:4].reshape(cap, 27)
         else:
             nbr3 = neighbor_map(kh, kl, 3, plan_kernel)
         levels.append(LevelPlan(lcoords, lvalid, count, nbr3, kh, kl))
@@ -214,8 +207,10 @@ def build_unet_plan(coords: torch.Tensor, valid: torch.Tensor, caps: tuple,
         capc = caps[lev + 1]
         pok = lvalid & (pinv < capc)
         rows_f = torch.arange(cap, dtype=torch.int32, device=dev)
-        children = torch.full((capc * 8,), -1, dtype=torch.int32, device=dev)
-        children[(pinv.long() * 8 + dcode)[pok]] = rows_f[pok]
+        # rows without a parent write one slot past the end, which is dropped
+        children = torch.full((capc * 8 + 1,), -1, dtype=torch.int32, device=dev)
+        children[torch.where(pok, pinv.long() * 8 + dcode, capc * 8)] = rows_f
+        children = children[:capc * 8]
         slot = torch.arange(8, dtype=torch.int32, device=dev)[None, :]
         upmap = torch.where(pok[:, None] & (dcode[:, None] == slot), pinv[:, None], -1)
         pools.append(PoolPlan(pinv, dcode, children.reshape(capc, 8),

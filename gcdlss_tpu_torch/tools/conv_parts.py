@@ -21,19 +21,22 @@ sums, and runs on it
     (dynamic), replaced by the row itself (static) or alone (index_only),
     the loop over the 27 offsets rolled or unrolled;
   - P3 `tile_gemm`: the product only, on rows read at fixed shifts;
-  - P4 `onehot_conv`: the conv with the gather as a one-hot product;
+  - P4 `onehot_conv`: the conv with the gather as a one-hot product on the
+    tensor cores (T2's question: does a gather done on the matrix unit beat
+    a real one?);
   - K1 `gather_gemm`: the whole.
 
 P3 multiplies as K1 does, on the tensor cores, but every offset of every row:
 K1 skips the (strip of 16 rows, offset) pairs that hold no entry. So the table
 prints beside K1 the product at K1's work, P3 times the share of strips K1
 keeps (`ops/conv.strips_kept_plain`), and what is left over of K1 after that
-and the row gather. P4 keeps the f32 FMA tile K1 had when it was written and
-records what that design cost.
+and the row gather. P4 computes K1's function with K1's instruction; only
+its gather differs.
 
 Every mode is first held against its plain version on the same inputs (any
 mismatch exits non-zero), then timed with CUDA events: warm-up, `--reps`
-single launches, median and quartiles. Where one PyTorch call computes a
+single calls, each behind a spin kernel so that the interval is device time
+and not the wrapper's host work (`time_ms`), median and quartiles. Where one PyTorch call computes a
 mode's function (P2 dynamic: `embedding_bag` with absent entries as its
 padding index; P2 static: `mul` into f32, as P2 writes; the index sum: `sum`;
 P3: `conv2d` along the rows), that call is held to the plain version and timed
@@ -106,15 +109,23 @@ def level0_book(rows: int, voxel_size: float, seed: int, device):
     return plan.levels[0].nbr3.contiguous(), plan.levels[0].valid, scans
 
 
+HOLD_CYCLES = 200_000  # ~0.11 ms of the card's clock: longer than a wrapper's host work
+
+
 def time_ms(fn, reps: int, on_cuda: bool) -> list:
     """`reps` single calls after 2 warm-ups: CUDA events on the card, the
-    host clock on the CPU."""
+    host clock on the CPU. On the card a spin kernel of HOLD_CYCLES goes
+    ahead of the start event, so that the host has queued the call's
+    launches before the card reaches the event: the interval is the call's
+    device time, not its wrapper's Python (checks, allocation, the ctypes
+    call: tens of microseconds, more than the smallest kernels take)."""
     for _ in range(2):
         fn()
     out = []
     for _ in range(reps):
         if on_cuda:
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
             a.record()
             fn()
             b.record()
@@ -241,6 +252,72 @@ def modes(x, w, nbr, rows: int, channels: int) -> list:
     return out
 
 
+def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|got - ref|, max|ref|) in f64."""
+    return (float((got.double() - ref.double()).abs().max()) if ref.numel() else 0.0,
+            float(ref.double().abs().max()) if ref.numel() else 0.0)
+
+
+def check_gather_sum_case(device, n_out: int, n_in: int, k: int, c: int, kind: str) -> float:
+    """P2 on `utils.adversarial.book(n_out, n_in, k, kind)` in every mode
+    that serves the case (static needs N_in == N_out; the unrolled loop K =
+    27), each launch counted once: index_only bit for bit, the others within
+    TOL["P2"] of max|plain|. Returns the worst error relative to max|plain|;
+    raises AssertionError on a mismatch."""
+    from ..utils.adversarial import book
+
+    nbr = torch.as_tensor(book(n_out, n_in, k, kind, seed=n_out + c), device=device)
+    g = torch.Generator().manual_seed(c + k)
+    x = torch.randn(n_in, c, generator=g).to(device).to(torch.bfloat16)
+    worst = 0.0
+    for index in cp.INDEX_MODES:
+        if index == "static" and n_in != n_out:
+            continue
+        for unroll in ((False, True) if k == 27 else (False,)):
+            what = f"P2 {index} {'unrolled' if unroll else 'rolled'} {kind} {n_out}x{k} from {n_in}, C {c}"
+            before = cp.gather_sum.launches
+            got = cp.gather_sum(x, nbr, index, unroll)
+            if device.type == "cuda" and cp.gather_sum.launches != before + 1:
+                raise AssertionError(f"{what}: the kernel did not launch once")
+            ref = cp.gather_sum_plain(x, nbr, index)
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}, expected "
+                                     f"{ref.dtype} {tuple(ref.shape)}")
+            err, scale = _max_rel(got, ref)
+            tol = 0.0 if index == "index_only" else TOL["P2"]
+            if not err <= tol * scale:
+                raise AssertionError(f"{what}: max|d| {err} above {tol} x {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def check_onehot_case(device, n_out: int, n_in: int, k: int, ci: int, co: int,
+                      kind: str) -> tuple:
+    """P4 on `utils.adversarial.book(n_out, n_in, k, kind)` against
+    `gather_conv` within TOL["P4"] of max|plain|, `far` against
+    `onehot_far_plain`, two launches the same bits. Returns (error relative
+    to max|plain|, far); raises AssertionError on a mismatch."""
+    from ..utils.adversarial import book
+
+    what = f"P4 {kind} {n_out}x{k} from {n_in}, {ci}->{co}"
+    nbr = torch.as_tensor(book(n_out, n_in, k, kind, seed=n_out + ci + co), device=device)
+    g = torch.Generator().manual_seed(ci + co)
+    x = torch.randn(n_in, ci, generator=g).to(device).to(torch.bfloat16)
+    w = (torch.randn(k, ci, co, generator=g) * (2.0 / (k * ci)) ** 0.5).to(device).to(torch.bfloat16)
+    out, far = cp.onehot_conv(x, nbr, w)
+    again, far_again = cp.onehot_conv(x, nbr, w)
+    ref = gather_conv(x, nbr, w)
+    err, scale = _max_rel(out, ref)
+    if out.shape != ref.shape or not err <= TOL["P4"] * scale:
+        raise AssertionError(f"{what}: shape {tuple(out.shape)}, max|d| {err} above "
+                             f"{TOL['P4']} x {scale}")
+    if not (torch.equal(out, again) and int(far) == int(far_again)):
+        raise AssertionError(f"{what}: two launches differ")
+    if int(far) != int(cp.onehot_far_plain(nbr)):
+        raise AssertionError(f"{what}: far {int(far)}, plain rule {int(cp.onehot_far_plain(nbr))}")
+    return err / max(scale, 1e-30), int(far)
+
+
 def run_config(device, rows: int, channels: int, voxel_size: float, reps: int, seed: int,
                gpu: str) -> list:
     """Check and time every mode at one configuration; returns the result rows."""
@@ -255,10 +332,13 @@ def run_config(device, rows: int, channels: int, voxel_size: float, reps: int, s
     far_plain = int(cp.onehot_far_plain(nbr))
     entries = int((nbr >= 0).sum())
     kept = float(strips_kept_plain(nbr).float().mean())
+    tiles = cp.onehot_tiles_plain(nbr)
     log(f"config: rows {rows} channels {channels} voxel {voxel_size} m, {scans} scans, valid "
         f"{int(valid.sum())}, fill {fill:.4f} ({entries} entries), strips of 16 rows kept "
-        f"{kept:.4f}; onehot: {far} entries "
-        f"({far / max(entries, 1):.4f}) outside their sub-window, gathered directly")
+        f"{kept:.4f}; onehot: {far} entries ({far / max(entries, 1):.4f}) outside their "
+        f"window of {cp.ONEHOT_SUBWIN} rows, gathered directly; k16 tiles of the window a "
+        f"(strip, offset) with an entry inside multiplies: "
+        f"{float(tiles[tiles > 0].float().mean()) if bool((tiles > 0).any()) else 0.0:.3f}")
     if far != far_plain:
         raise SystemExit(f"conv_parts: onehot far count {far} differs from the plain {far_plain}")
 
@@ -324,7 +404,8 @@ def summary(results: list, rows: int, channels: int, gpu: str, kept: float) -> N
              (f"product at K1's work (P3 x strips kept {kept:.3f})", ms["product"] * kept)]
     if stage in ms:
         parts.append((f"staging (P1 rows, W {WINDOWS[0]}, 2 buffers)", ms[stage]))
-    parts.append(("gather as a one-hot product, whole conv (P4)", ms["onehot"]))
+    parts.append(("gather as a one-hot product on the tensor cores, whole conv (P4)",
+                  ms["onehot"]))
     library = {r["mode"]: r["library_ms"] for r in results}
     for name, mode in (("row gather by the library (embedding_bag, bf16 out)",
                         "gather dynamic rolled"),
@@ -333,10 +414,10 @@ def summary(results: list, rows: int, channels: int, gpu: str, kept: float) -> N
             parts.append((name, library[mode]))
     left = full - ms["gather dynamic rolled"] - ms["product"] * kept
     log(f"parts of K1 at rows {rows}, channels {channels} -> {channels}, K {K} ({gpu}):")
-    log(f"  {'whole conv (K1 gather_gemm)':<52} {full:9.3f} ms  1.000 of K1")
+    log(f"  {'whole conv (K1 gather_gemm)':<66} {full:9.3f} ms  1.000 of K1")
     for name, v in parts:
-        log(f"  {name:<52} {v:9.3f} ms  {v / full:5.3f} of K1")
-    log(f"  {'left over: K1 - row gather - product at its work':<52} {left:9.3f} ms  "
+        log(f"  {name:<66} {v:9.3f} ms  {v / full:5.3f} of K1")
+    log(f"  {'left over: K1 - row gather - product at its work':<66} {left:9.3f} ms  "
         f"{left / full:5.3f} of K1")
 
 

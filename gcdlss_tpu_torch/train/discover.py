@@ -104,7 +104,7 @@ class DiscoverConfig:
     min_lr: float = 1e-5
     epochs: int = 50
     steps_per_epoch: int = 1000
-    plan_kernel: int = 2  # k^3 maps: 2 = K3 (binary search), 1 = K4 (ranks)
+    plan_kernel: int = 2  # k^3 maps: 2 = K3 (a search per row and column), 1 = K4 (ranks)
 
 
 def check_config(cfg: DiscoverConfig) -> None:

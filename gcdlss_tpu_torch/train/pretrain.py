@@ -113,8 +113,11 @@ class ExpPretrain:
     """Host-side orchestration for Stage 1 (epochs, eval), like the
     reference's `ExpPretrain` LightningModule (`modules/exp.py:71-361`).
 
-    `step_log` keeps one record per train step: loss, plan overflow and the
-    step's wall time (it ends by reading the loss, which waits for the card).
+    `step_log` keeps one record per train step: loss, plan overflow and
+    `step_ms`, the step's time on the device between two CUDA events (on the
+    CPU, where a step runs to its end before it returns: the host clock).
+    Like the reference, an epoch reads the device once, at its end: the
+    losses, overflows and events stay on the card until then.
     """
 
     def __init__(self, cfg: PretrainConfig, label_mapping: dict, label_mapping_inv: dict,
@@ -128,17 +131,35 @@ class ExpPretrain:
         self.step_log: list = []
 
     def train_epoch(self, loader) -> float:
-        losses = []
+        on_card = self.device.type == "cuda"
+        losses, overflows, clocks = [], [], []
         for batch in loader:
-            t0 = time.perf_counter()
+            if on_card:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+            else:
+                t0 = time.perf_counter()
             vb = voxel_batch_to_device(batch["voxel"], self.device)
             self.state, metrics = pretrain_train_step(self.state, vb, self.cfg)
-            loss = float(metrics["loss"])
-            self.step_log.append({"loss": loss,
-                                  "plan_overflow": int(metrics["plan_overflow"]),
-                                  "seconds": time.perf_counter() - t0})
-            losses.append(loss)
-        return float(np.mean(losses)) if losses else float("nan")
+            if on_card:
+                end.record()
+                clocks.append((start, end))
+            else:
+                clocks.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"])
+            overflows.append(metrics["plan_overflow"])
+        if not losses:
+            return float("nan")
+        # the epoch's one read of the device (overflow counts are exact in f32);
+        # every event has passed once it returns
+        loss_v, overflow_v = torch.stack([torch.stack(losses).float(),
+                                          torch.stack(overflows).float()]).cpu().numpy()
+        for loss, overflow, clock in zip(loss_v, overflow_v, clocks):
+            ms = clock[0].elapsed_time(clock[1]) if on_card else clock
+            self.step_log.append({"loss": float(loss), "plan_overflow": int(overflow),
+                                  "step_ms": ms})
+        return float(np.mean(loss_v, dtype=np.float64))
 
     def validate(self, loader) -> dict:
         d = self.cfg.num_classes

@@ -62,3 +62,41 @@ TILE_GEMM_SHAPES = (
     (1, 1, 96, 96), (127, 27, 96, 96), (129, 1, 256, 256), (4097, 8, 24, 256),
     (4097, 2, 8, 96), (129, 27, 24, 20), (127, 8, 256, 96), (4097, 27, 96, 256),
 )
+
+
+# (N_out, N_in, K, C, book) of the gather without the product (`book` kinds
+# below): N_out 1, 127, 129 and 4,097 (no multiple of a block's rows), C from
+# one 16-byte piece to 256, K 1, 8 and 27, N_in != N_out
+GATHER_SUM_CASES = (
+    (1, 1, 27, 8, "random"), (127, 300, 8, 24, "random"), (129, 129, 1, 96, "full"),
+    (4097, 4097, 27, 256, "random"), (4097, 4097, 27, 96, "absent"),
+    (4097, 2000, 27, 96, "full"), (129, 50, 27, 256, "last_row"), (127, 127, 27, 8, "last_row"),
+    (4096, 4096, 8, 256, "random"), (1, 4097, 1, 96, "random"), (4097, 4097, 27, 24, "full"),
+)
+
+# (N_out, N_in, K, Ci, Co, book) of the conv with its gather as a one-hot
+# product: the random book (most entries outside every window), no entry, a
+# single row, every entry inside one window; Ci 8, 24, 96, 256, Co 20, 96,
+# 256; N_in != N_out, N_in smaller than a window
+ONEHOT_CASES = (
+    (4097, 4097, 27, 96, 96, "random"), (3000, 5000, 27, 256, 256, "random"),
+    (5000, 3000, 8, 8, 20, "random"), (4097, 4097, 27, 96, 256, "absent"),
+    (1, 300, 27, 96, 96, "random"), (1, 1, 27, 8, 20, "full"),
+    (2000, 2000, 27, 256, 96, "one_window"), (1000, 60, 27, 24, 96, "random"),
+    (4097, 4097, 27, 8, 256, "one_window"), (129, 129, 27, 256, 20, "last_row"),
+)
+
+
+def book(n_out: int, n_in: int, k: int, kind: str, seed: int = 0) -> np.ndarray:
+    """int32 [n_out, k] rows of an x of n_in rows, -1 absent: "random" (each
+    entry present with probability 0.3, uniform over x), "full" (every entry
+    present), "absent" (none), "last_row" (present entries half of them the
+    last row of x), "one_window" (every entry among 100 consecutive rows)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n_in, size=(n_out, k))
+    if kind == "one_window":
+        rows = n_in // 3 + rng.integers(0, min(100, n_in - n_in // 3), size=(n_out, k))
+    if kind == "last_row":
+        rows = np.where(rng.random((n_out, k)) < 0.5, n_in - 1, rows)
+    present = {"random": 0.3, "last_row": 0.5, "full": 1.0, "one_window": 0.4, "absent": 0.0}[kind]
+    return np.where(rng.random((n_out, k)) < present, rows, -1).astype(np.int32)

@@ -19,7 +19,8 @@ from gcdlss_tpu.ops import conv as jconv
 from gcdlss_tpu.ops.plan import build_unet_plan
 from gcdlss_tpu_torch.ops import conv_parts as cp
 from gcdlss_tpu_torch.tools import conv_parts as tool
-from gcdlss_tpu_torch.utils.adversarial import TILE_GEMM_SHAPES
+from gcdlss_tpu_torch.utils.adversarial import (GATHER_SUM_CASES, ONEHOT_CASES, TILE_GEMM_SHAPES,
+                                                book as adversarial_book)
 
 N = 4096
 K = 27
@@ -111,6 +112,104 @@ def test_onehot_far_count(book):
     rnd = np.random.default_rng(0).integers(-1, N, (N - 7, K)).astype(np.int32)
     got = int(cp.onehot_far_plain(torch.tensor(rnd)))
     assert 0.8 * (rnd >= 0).sum() < got <= (rnd >= 0).sum()
+
+
+def _legacy_plan():
+    """The JAX tools' window rule (`tools/legacy_plan.py`), loaded from its file."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "legacy_plan.py"
+    spec = importlib.util.spec_from_file_location("legacy_plan", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.plan_windows_legacy
+
+
+def test_onehot_far_count_is_the_jax_tools_rule(book):
+    """P4's far rule is the JAX one-hot tool's (`plan_windows_legacy`, the
+    plan of `tools/kernel_variants_bench.py` `mk_onehot`) at the port's
+    constants, with a window over all of x, less the TPU's alignment of each
+    start down to 128 rows (its lane tiling): on the book with every row
+    index times 128, where every start is aligned, the counts are equal; on
+    the book itself the aligned start can only put more entries outside."""
+    nbr, _ = book
+    plan_windows_legacy = _legacy_plan()
+    rnd = np.random.default_rng(2).integers(-1, N, (N, K)).astype(np.int32)
+    for b in (nbr, rnd):
+        port = int(cp.onehot_far_plain(torch.tensor(b)))
+        scaled = np.where(b >= 0, b * 128, -1).astype(np.int32)
+        *_, far = plan_windows_legacy(jnp.asarray(scaled), block=cp.ONEHOT_ROWS, window=128 * N,
+                                      subwin=128 * cp.ONEHOT_SUBWIN)
+        assert port == int(far)
+        *_, far_aligned = plan_windows_legacy(jnp.asarray(b), block=cp.ONEHOT_ROWS, window=N,
+                                              subwin=cp.ONEHOT_SUBWIN)
+        assert port <= int(far_aligned)
+    assert int(cp.onehot_far_plain(torch.tensor(rnd))) > 0.5 * (rnd >= 0).sum()
+
+
+def test_onehot_tiles_count_by_brute_force(book):
+    """The k16 tiles of its window a 16-row strip's entries fall into (the
+    one-hot products P4 runs for a (strip, offset)), against a loop."""
+    nbr, _ = book
+    rnd = np.random.default_rng(3).integers(-1, 700, (N - 9, K)).astype(np.int32)
+    for b in (nbr, rnd):
+        got = cp.onehot_tiles_plain(torch.tensor(b)).numpy()
+        assert got.shape == (-(-len(b) // 16), K)
+        want = np.zeros_like(got)
+        for b0 in range(0, len(b), cp.ONEHOT_ROWS):
+            blk = b[b0:b0 + cp.ONEHOT_ROWS]
+            for k in range(K):
+                col = blk[:, k]
+                if not (col >= 0).any():
+                    continue
+                start = col[col >= 0].min()
+                for s0 in range(0, len(blk), 16):
+                    rel = col[s0:s0 + 16]
+                    rel = rel[(rel >= 0) & (rel - start < cp.ONEHOT_SUBWIN)] - start
+                    want[(b0 + s0) // 16, k] = len(set((rel // 16).tolist()))
+        np.testing.assert_array_equal(got, want)
+    assert 0 < got.max() <= cp.ONEHOT_SUBWIN // 16
+
+
+@pytest.mark.parametrize("n_out,n_in,k,c,kind", GATHER_SUM_CASES)
+def test_gather_sum_on_adversarial_books(n_out, n_in, k, c, kind):
+    """P2's plain versions on the books the card's checks use (ragged row
+    counts, no entry, every entry, entries at the last row of x, N_in !=
+    N_out), against numpy in f64."""
+    b = adversarial_book(n_out, n_in, k, kind, seed=n_out + c)
+    x = _bf16(np.random.default_rng(c).standard_normal((n_in, c)))
+    ref = np.zeros((n_out, c))
+    for kq in range(k):
+        ref += np.where(b[:, kq:kq + 1] >= 0, x[np.maximum(b[:, kq], 0)], 0.0)
+    got = cp.gather_sum(torch.tensor(x), torch.tensor(b)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=TOL * max(np.abs(ref).max(), 1e-6))
+    np.testing.assert_array_equal(cp.gather_sum(torch.tensor(x), torch.tensor(b), "index_only"),
+                                  b.sum(1, dtype=np.int32)[:, None])
+    if n_in == n_out:
+        _close(cp.gather_sum(torch.tensor(x), torch.tensor(b), "static").numpy(),
+               (x * np.float32(k)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n_out,n_in,k,ci,co,kind", ONEHOT_CASES)
+def test_onehot_conv_on_adversarial_books(n_out, n_in, k, ci, co, kind):
+    """P4's plain version on the books the card's checks use, against a
+    numpy conv in f64 (1e-5 of its scale), and its far count against a loop."""
+    b = adversarial_book(n_out, n_in, k, kind, seed=n_out + ci + co)
+    rng = np.random.default_rng(ci + co)
+    x = _bf16(rng.standard_normal((n_in, ci)))
+    w = _bf16(rng.standard_normal((k, ci, co)) * (2.0 / (k * ci)) ** 0.5)
+    ref = sum(np.where(b[:, kq:kq + 1] >= 0, x[np.maximum(b[:, kq], 0)], 0.0) @ w[kq]
+              for kq in range(k))
+    got, far = cp.onehot_conv(torch.tensor(x), torch.tensor(b), torch.tensor(w))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL * max(np.abs(ref).max(), 1e-6))
+    want = 0
+    for b0 in range(0, n_out, cp.ONEHOT_ROWS):
+        for kq in range(k):
+            col = b[b0:b0 + cp.ONEHOT_ROWS, kq]
+            col = col[col >= 0]
+            want += int((col - col.min() >= cp.ONEHOT_SUBWIN).sum()) if len(col) else 0
+    assert int(far) == want
 
 
 @pytest.mark.parametrize("c", [16, 32])

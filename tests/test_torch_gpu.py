@@ -23,7 +23,8 @@ from gcdlss_tpu_torch.ops.plan import _column_ranks, build_unet_plan, join_neigh
 from gcdlss_tpu_torch.ops.plan_kernel import (CUBE_MAP_MAX_K1, cube_candidates_map,
                                               cube_candidates_plain, cube_direct_rule,
                                               cube_neighbor_map)
-from gcdlss_tpu_torch.utils.adversarial import TILE_GEMM_SHAPES, neighbor_map_levels
+from gcdlss_tpu_torch.utils.adversarial import (GATHER_SUM_CASES, ONEHOT_CASES, TILE_GEMM_SHAPES,
+                                                neighbor_map_levels)
 
 pytestmark = pytest.mark.gpu
 CAPS = (4096, 2048, 1024, 512, 256)
@@ -383,3 +384,52 @@ def test_tile_gemm_refuses_what_the_kernel_does_not_serve(plan):
         for ci in (8, 24, 96, 256, 264, 384, 1032):
             for co in (1, 96, 97, 256):
                 assert cp.tile_gemm_fits(k, ci, co) == (lib.gcd_tile_gemm_scratch(k, ci, co) >= 0)
+
+
+@pytest.mark.parametrize("n_out,n_in,k,c,kind", GATHER_SUM_CASES)
+def test_gather_sum_ragged(plan, n_out, n_in, k, c, kind):
+    """P2 in every mode that serves the case, rolled and (K = 27) unrolled,
+    at N_out 1 .. 4,097, C 8 .. 256, K 1, 8, 27, on books with no entry,
+    every entry, entries at the last row of x, and N_in != N_out: index_only
+    bit for bit, the others within 1e-5 of max|plain|, one launch each."""
+    from gcdlss_tpu_torch.tools.conv_parts import check_gather_sum_case
+
+    check_gather_sum_case(plan.stem_nbr.device, n_out, n_in, k, c, kind)
+
+
+@pytest.mark.parametrize("n_out,n_in,k,ci,co,kind", ONEHOT_CASES)
+def test_onehot_conv_adversarial(plan, n_out, n_in, k, ci, co, kind):
+    """P4 on the random book (most entries outside every window), no entry,
+    a single row, every entry inside one window; Ci 8 .. 256, Co 20 .. 256,
+    N_in != N_out: the conv within 1e-2 of max|plain|, `far` as the plain
+    rule counts it, two launches the same bits."""
+    from gcdlss_tpu_torch.tools.conv_parts import check_onehot_case
+
+    check_onehot_case(plan.stem_nbr.device, n_out, n_in, k, ci, co, kind)
+
+
+def test_onehot_conv_refuses_what_the_kernel_does_not_serve(plan):
+    from gcdlss_tpu_torch.ops import conv_parts as cp
+
+    dev = plan.stem_nbr.device
+    nbr = torch.zeros(64, 27, device=dev, dtype=torch.int32)
+    store = torch.zeros(64 * 16 + 8, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(27, 16, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cp.onehot_conv(store[1:1 + 64 * 16].view(64, 16), nbr, w)
+    with pytest.raises(ValueError):  # Ci no multiple of 8
+        cp.onehot_conv(torch.zeros(64, 12, device=dev, dtype=torch.bfloat16), nbr,
+                       torch.zeros(27, 12, 8, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # K above ONEHOT_MAX_K
+        cp.onehot_conv(store[:64 * 16].view(64, 16), torch.zeros(64, 65, device=dev, dtype=torch.int32),
+                       torch.zeros(65, 16, 8, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_plan_build_waits_for_no_host_sync(plan, stage):
+    """`build_unet_plan` at the Stage-1 and Stage-2 caps of `chip_smoke.py`
+    with `torch.cuda.set_sync_debug_mode("error")`: no operation of the
+    build makes the host wait for the card."""
+    import chip_smoke
+
+    chip_smoke.plan_sync_case(plan.stem_nbr.device, stage)

@@ -98,6 +98,19 @@ def test_tools_fail_without_cuda(module):
     assert "CUDA" in proc.stderr
 
 
+def test_parts_ab_fails_without_cuda():
+    """The A/B timer, run as the script it is, raises without a CUDA device."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "gcdlss_tpu_torch/tools/parts_ab.py"),
+                           "--root", str(ROOT)], capture_output=True, text=True, env=_env(),
+                          cwd=ROOT, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+
+
 def test_chip_smoke_fails_without_cuda():
     """Where torch has no CUDA device the smoke exits non-zero and prints no
     result line."""

@@ -101,13 +101,21 @@ def test_train_steps_and_eval_match_jax(setup):
     # a fresh JAX state: its train step donates (deletes) the state it is given
     jstate = jpt.create_pretrain_state(jax.random.PRNGKey(0), s["jcfg"])
     tstate = _port_state(s)
+    jlosses = []
     for step in range(2):
         jstate, jm = jpt.pretrain_train_step(jstate, jb, s["jcfg"])
         tstate, tm = tpt.pretrain_train_step(tstate, tb, s["tcfg"])
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
         assert int(tm["plan_overflow"]) == int(jm["plan_overflow"])
         _assert_state_close(jstate, tstate, rtol=1e-4)
+        jlosses.append(float(jm["loss"]))
     assert tstate.step == 2
+
+    # the host loop on the same batch and weights: an epoch of one step, its
+    # loss read at the epoch's end, against the JAX step's
+    exp = tpt.ExpPretrain(s["tcfg"], s["mapping"], s["inv"], seed=0, device="cpu")
+    load_jax_params(exp.state.model, s["params"], s["stats"])
+    np.testing.assert_allclose(exp.train_epoch([s["batch"]]), jlosses[0], rtol=1e-5)
 
     lut = tcommon.inv_label_lut(s["inv"], 17)
     jconf, jloss = jpt.pretrain_eval_step(
@@ -137,12 +145,15 @@ def test_reference_state_dict_loader(setup):
 
 
 def test_exp_pretrain_epoch_and_validate(setup):
-    """The host loop (`ExpPretrain`) through the repository's loader."""
+    """The host loop (`ExpPretrain`) through the repository's loader; its
+    epoch reads the losses once, at its end, as the reference's does."""
     s = setup
     exp = tpt.ExpPretrain(s["tcfg"], s["mapping"], s["inv"], seed=0, device="cpu")
     loss = exp.train_epoch(PrefetchLoader(s["train_ds"], 2, CAPS[0], num_workers=1, seed=0))
     assert np.isfinite(loss) and len(exp.step_log) == 1
-    assert exp.step_log[0]["plan_overflow"] >= 0
+    assert set(exp.step_log[0]) == {"loss", "plan_overflow", "step_ms"}
+    assert exp.step_log[0]["loss"] == loss and exp.step_log[0]["plan_overflow"] >= 0
+    assert exp.step_log[0]["step_ms"] > 0
     vm = exp.validate(PrefetchLoader(s["val_ds"], 2, CAPS[0], point_cap=2048, shuffle=False,
                                      num_workers=1, drop_last=False))
     assert vm["conf"].shape == (19, 19) and vm["conf"].sum() > 0
