@@ -27,7 +27,9 @@ Phases, each of which raises on failure:
      ragged row counts and widths, N_in != N_out, a misaligned x) and K3 on
      levels no scan makes (voxels on the faces and corners of the coordinate
      field, no voxel, one voxel, a full cube, long z runs, four equal batches,
-     a level cut at its capacity; k1 = 3, 5, 7) against their plain versions;
+     a level cut at its capacity; k1 = 3, 5, 7) against their plain versions,
+     and K4 on the same levels (k1 = 3, 5) against its plain version and, off
+     the field's faces, K3;
   4. reference: MinkUNet34 forward (eval-mode batch norm) on a small input,
      on the card (kernels) and on the CPU (plain versions) with the same
      weights, relative error <= REF_TOL; then the plan build at the Stage-1
@@ -38,7 +40,10 @@ Phases, each of which raises on failure:
      `tools/conv_parts.py`, against their plain versions at the tool's two
      configurations (262,144 rows x 96 channels; 131,072 x 256); P3 again at
      ragged shapes (N 1 .. 4,097, K 1, 2, 8, 27, Ci 8 .. 256, Co 20, 96, 256),
-     two runs the same bits; P2 in every mode at ragged shapes and books
+     two runs the same bits; P1 at `utils.adversarial.WINDOW_SUM_CASES`
+     (cluster remainders, equal, end and unaligned starts, W 32, N = W,
+     C 8 .. 256) in every layout with 1 and 2 buffers, two runs the same
+     bits; P2 in every mode at ragged shapes and books
      (N_out 1 .. 4,097, C 8 .. 256, K 1, 8, 27; no entry, every entry, the
      last row of x, N_in != N_out); P4 on adversarial books (random, empty,
      one row, one window; Ci 8 .. 256, Co 20 .. 256) against the conv, its
@@ -243,6 +248,77 @@ def cube_map_adversarial_phase(device) -> None:
     torch.cuda.synchronize()
     log(f"K3 adversarial: {len(levels)} levels ({', '.join(levels)}) x k1 3, 5, 7 bit-equal to "
         f"the join path, two launches each")
+
+
+def check_cube_candidates_level(device, name: str, k1: int) -> None:
+    """K4 on the level `name` of `utils.adversarial.neighbor_map_levels`
+    (caps no multiple of a tile's rows): bit for bit against its plain
+    version, two launches the same bits, one launch counted (on the card),
+    and equal to K3 on every row but those within k1 // 2 of the field's
+    faces, where K4 keeps the JAX package's arithmetic queries and K3 the
+    join path's clipped ones."""
+    import torch
+
+    from gcdlss_tpu_torch.ops.coords import FIELD, SENTINEL_HI, encode_coords, sorted_unique
+    from gcdlss_tpu_torch.ops.plan import _column_ranks
+    from gcdlss_tpu_torch.ops.plan_kernel import (cube_candidates_map, cube_candidates_plain,
+                                                  cube_neighbor_map)
+    from gcdlss_tpu_torch.utils.adversarial import neighbor_map_levels
+
+    coords, cap = neighbor_map_levels()[name]
+    c = torch.as_tensor(coords, device=device)
+    hi, lo = encode_coords(c, torch.ones(len(c), dtype=torch.bool, device=device))
+    (kh, kl), _, _, _ = sorted_unique(hi, lo, cap)
+    p, has = _column_ranks(kh != SENTINEL_HI, kh, kl, k1)
+    before = cube_candidates_map.launches
+    got = cube_candidates_map(kh, kl, p, has, k1)
+    if device.type == "cuda" and cube_candidates_map.launches != before + 1:
+        raise AssertionError(f"K4 adversarial {name} k{k1}: the kernel did not launch once")
+    mism = int((got != cube_candidates_plain(kh, kl, p, has, k1)).sum())
+    if mism or not torch.equal(got, cube_candidates_map(kh, kl, p, has, k1)):
+        raise AssertionError(f"K4 adversarial {name} k{k1}: {mism} entries differ from the plain "
+                             f"version, or two launches differ")
+    r = k1 // 2
+    x, y, z = kh % FIELD, kl // FIELD, kl % FIELD
+    lo_c, hi_c = torch.minimum(x, torch.minimum(y, z)), torch.maximum(x, torch.maximum(y, z))
+    inside = (kh == SENTINEL_HI) | ((lo_c >= r) & (hi_c <= FIELD - 1 - r))
+    k3 = cube_neighbor_map(kh, kl, k1)
+    mism = int((got[inside] != k3[inside]).sum())
+    if mism:
+        raise AssertionError(f"K4 adversarial {name} k{k1}: {mism} entries differ from K3 "
+                             f"inside the field")
+
+
+def cube_candidates_adversarial_phase(device) -> None:
+    """K4 at every level of `utils.adversarial.neighbor_map_levels`, k1 = 3
+    and 5 (`check_cube_candidates_level`)."""
+    import torch
+
+    from gcdlss_tpu_torch.utils.adversarial import neighbor_map_levels
+
+    levels = neighbor_map_levels()
+    for name in levels:
+        for k1 in (3, 5):
+            check_cube_candidates_level(device, name, k1)
+    torch.cuda.synchronize()
+    log(f"K4 adversarial: {len(levels)} levels ({', '.join(levels)}) x k1 3, 5 bit-equal to the "
+        f"plain version, two launches each, and to K3 inside the field")
+
+
+def window_sum_adversarial_phase(device) -> None:
+    """P1 at `utils.adversarial.WINDOW_SUM_CASES` in every layout that holds
+    each case, 1 and 2 buffers (`tools.conv_parts.check_window_sum_case`)."""
+    import torch
+
+    from gcdlss_tpu_torch.tools.conv_parts import check_window_sum_case
+    from gcdlss_tpu_torch.utils.adversarial import WINDOW_SUM_CASES
+
+    worst = max(check_window_sum_case(device, *case) for case in WINDOW_SUM_CASES)
+    torch.cuda.synchronize()
+    log(f"P1 adversarial: {len(WINDOW_SUM_CASES)} cases (NB no multiple of a cluster, equal "
+        f"starts, starts at 0 and N - W, unaligned starts, W 32, N = W, C 8 .. 256, N no "
+        f"multiple of 8 or 128, random starts at W 6144), every layout, 1 and 2 buffers, two "
+        f"launches bit-equal; worst relative error {worst:.3e}")
 
 
 def tile_gemm_ragged_phase(device) -> None:
@@ -654,6 +730,7 @@ def conv_parts_phase(device, card: str):
                             | ({"far_entries": r["far_entries"]} if "far_entries" in r else {}))
 
     tile_gemm_ragged_phase(device)
+    window_sum_adversarial_phase(device)
     gather_sum_ragged_phase(device)
     onehot_adversarial_phase(device)
     kernels = part_kernels()
@@ -888,6 +965,7 @@ def main() -> int:
     rows = kernel_phase(device) + stage2_kernel_phase(device)
     adversarial_phase(device)
     cube_map_adversarial_phase(device)
+    cube_candidates_adversarial_phase(device)
     reference_phase(device)
     plan_sync_phase(device)
     part_rows, launches_parts = conv_parts_phase(device, card)

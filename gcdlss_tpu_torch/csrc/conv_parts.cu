@@ -11,12 +11,22 @@
 //   tools/dma_layout_bench.py `run_tilecp`, `run`   (source layouts, buffering)
 //
 //   P1 window_sum   out[i, c] = sum_{r < W} x[ws[i] + r, c]
-//                   Staging without arithmetic: the window goes through
-//                   shared memory in chunks of 32 rows with 16-byte cp.async
-//                   copies, one or two chunks in flight, from x held as
-//                   [N, C] (rows), [C, N] (cols) or [N/128, C, 128] (tiles).
-//                   The sum is the cheapest consumer that keeps every load
-//                   alive. Bound by bytes: NB * W * C * 2 of them are staged.
+//                   Staging without arithmetic, from x held as [N, C]
+//                   (rows), [C, N] (cols) or [N/128, C, 128] (tiles); the
+//                   sum is the cheapest consumer that keeps every load
+//                   alive. A cluster of 8 blocks takes 8 or 16 consecutive
+//                   windows and stages each row of their union once, through
+//                   tensor-map copies (one thread asks; a ring of 1 or 2
+//                   stages, at most 32 KB together, on mbarriers). Each
+//                   thread sums its rows of a segment (the rows between two
+//                   consecutive window starts or ends) in registers; each
+//                   window adds its segments' sums (details at the kernel).
+//                   Bound by bytes: each row of x that some window reads,
+//                   once: 0.015 / 0.020 ms at the tool's shapes (an H100
+//                   SXM's published 3.35 TB/s at 700 W). The per-block
+//                   staging it replaces moved NB * W * C * 2 bytes through L2
+//                   (403 / 537 MB at W 2048); the clusters' unions are ~72 /
+//                   ~126 MB with sequential starts.
 //   P2 gather_sum   out[u, c] = sum_k [nbr[u, k] >= 0] x[nbr[u, k], c]
 //                   The gather without the product, one 16-byte piece (8
 //                   channels) a lane, 16-byte f32 stores.
@@ -101,6 +111,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -154,135 +165,368 @@ __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
 }
 
 // ------------------------------------------------------------------ P1
+//
+// A cluster of P1_CL blocks takes P1_CL * wpb consecutive windows, wpb = 1 or
+// 2 a block (2 where the card cannot hold the grid's clusters of one window
+// a block at once: `p1_windows_per_block`), and stages each row of their
+// union once, through the copy engine (tensor-map copies, a ring of
+// `buffers` stages on mbarriers, one thread asking). Window i's rows split
+// into a head [s, ceil8(s)), a body [ceil8(s), floor8(s + W)) of whole 8-row
+// groups and a tail [floor8(s + W), s + W). The bodies' union, a list of at
+// most P1_CL * wpb disjoint group-aligned intervals, and the sorted distinct
+// body starts and ends (the boundaries; consecutive ones bound a segment) are
+// worked out by every block alike. The union's G groups are dealt out in
+// order: block b of the cluster stages groups [b G / P1_CL, (b + 1) G /
+// P1_CL), in stages that end at every boundary. Each thread keeps its sums
+// of the current segment in registers; at a segment's end the block adds its
+// threads' sums in a fixed order into the segment's sum, written to the
+// scratch rows of the block. After a cluster barrier, each window adds, for
+// each segment of its body in order, the blocks' sums of that segment in rank
+// order, with its head rows before and its tail rows after, read from x
+// directly. Every sum runs in a fixed order: reruns give the same bits.
+// `ops/conv_parts.window_schedule_plain` states the same schedule in Python.
 
-constexpr int CH = 32;               // rows staged per chunk
-constexpr int RED_FLOATS = 2048;     // reduction scratch: lanes * C <= 256 * 8
+constexpr int P1_CL = 8;                   // blocks of a cluster
+constexpr int P1_MAX_WPB = 2;              // windows of a block, at most
+constexpr int P1_NW = P1_CL * P1_MAX_WPB;  // windows of a cluster, at most
+constexpr int P1_MAX_SG = 16;              // groups of 8 rows a stage holds, at most
+constexpr int P1_RING_BYTES = 32768;       // bytes of x the ring holds, at most
+constexpr int P1_NMAPS = 5;                // tensor maps: copies of 1, 2, 4, 8, 16 groups
+constexpr int P1_PART = 8 * THREADS;       // floats of the threads' sums at a segment's end
 enum { ROWS = 0, COLS = 1, TILES = 2 };
 
-// element (row r, channel ch) of x in the column layouts
-template <int LAYOUT>
-__device__ __forceinline__ int64_t col_offset(int n, int c, int r, int ch) {
-  return LAYOUT == COLS ? (int64_t)ch * n + r
-                        : ((int64_t)(r >> 7) * c + ch) * 128 + (r & 127);
+struct P1Maps {
+  CUtensorMap m[P1_NMAPS];  // m[b]: a box of 2^b groups
+};
+
+// the cluster's schedule, the same in each of its blocks
+struct P1Sched {
+  int nu, gt, nbnd;
+  int u_lo[P1_NW], u_hi[P1_NW];  // union intervals of rows, group-aligned, sorted, disjoint
+  int u_pre[P1_NW + 1];          // union groups before interval m
+  int bnd[2 * P1_NW];            // boundaries, sorted, distinct
+  int bnd_ug[2 * P1_NW];         // union groups before each boundary
+};
+
+__device__ __forceinline__ int p1_body_lo(int s) { return (s + 7) & ~7; }
+__device__ __forceinline__ int p1_body_hi(int s, int window) { return (s + window) & ~7; }
+
+// The schedule of the cluster whose nw windows start at window w0, by every
+// thread of the block (three block barriers; `tmp`: scratch of 6 P1_NW
+// ints). Thread j < nw takes window w0 + j's body and puts it at its rank
+// among the live bodies (by start, ties by window). Thread t < 2 nw takes a
+// boundary candidate (t < nw: the start of body t, else the end of body
+// t - nw) and, if no thread below holds the same value, puts it at its rank
+// among the distinct values. Thread 0 merges the sorted bodies (an interval
+// opens a piece when it starts after every earlier one ends); thread k < nbnd
+// finds the union groups before boundary k.
+__device__ void p1_schedule(P1Sched& sc, int* tmp, const int32_t* __restrict__ ws, int nb,
+                            int window, int w0, int nw, int tid) {
+  int* cand = tmp;                // [2 nw] body starts, then ends; -1: no body
+  int* o_lo = tmp + 2 * P1_NW;    // [nw] live bodies by rank
+  int* o_hi = tmp + 3 * P1_NW;
+  int* first = tmp + 4 * P1_NW;   // [2 nw] the lowest holder of its value
+  if (tid < nw) {
+    int bl = -1, bh = -1;
+    if (w0 + tid < nb) {
+      const int s = ws[w0 + tid];
+      bl = p1_body_lo(s);
+      bh = p1_body_hi(s, window);
+      if (bl >= bh) bl = bh = -1;
+    }
+    cand[tid] = bl;
+    cand[nw + tid] = bh;
+  }
+  __syncthreads();
+  if (tid < 2 * nw) {
+    const int v = cand[tid];
+    bool f = v >= 0;
+    for (int t = 0; t < tid; ++t) f = f && cand[t] != v;
+    first[tid] = f;
+    if (tid < nw && v >= 0) {
+      int rank = 0;
+      for (int i = 0; i < nw; ++i) rank += cand[i] >= 0 && (cand[i] < v || (cand[i] == v && i < tid));
+      o_lo[rank] = v;
+      o_hi[rank] = cand[nw + tid];
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * nw && first[tid]) {
+    const int v = cand[tid];
+    int below = 0;
+    for (int t = 0; t < 2 * nw; ++t) below += first[t] && cand[t] < v;
+    sc.bnd[below] = v;
+  }
+  if (tid == 0) {
+    int n = 0, nbnd = 0;
+    for (int t = 0; t < 2 * nw; ++t) {
+      n += t < nw && cand[t] >= 0;
+      nbnd += first[t];
+    }
+    int nu = 0;
+    for (int q = 0; q < n; ++q) {
+      if (nu > 0 && o_lo[q] <= sc.u_hi[nu - 1]) {
+        sc.u_hi[nu - 1] = max(sc.u_hi[nu - 1], o_hi[q]);
+      } else {
+        sc.u_lo[nu] = o_lo[q];
+        sc.u_hi[nu] = o_hi[q];
+        ++nu;
+      }
+    }
+    sc.u_pre[0] = 0;
+    for (int m = 0; m < nu; ++m) sc.u_pre[m + 1] = sc.u_pre[m] + (sc.u_hi[m] - sc.u_lo[m]) / 8;
+    sc.nu = nu;
+    sc.gt = sc.u_pre[nu];
+    sc.nbnd = nbnd;
+  }
+  __syncthreads();
+  if (tid < sc.nbnd) {
+    const int v = sc.bnd[tid];
+    int m = 0;
+    while (v > sc.u_hi[m]) ++m;  // every boundary lies in (or ends) a piece
+    sc.bnd_ug[tid] = sc.u_pre[m] + (v - sc.u_lo[m]) / 8;
+  }
 }
 
-// Rows [row0, row0 + CH) of x into `buf`: [CH][c] for ROWS, [c][CH] for COLS
-// and TILES. 16-byte cp.async wherever source and run of 8 are aligned, else
-// element by element (a window start that is not a multiple of 8).
+// The next stage of a block's share, from union group g (< g_end): its first
+// row, its groups (at most sg; never across an interval's end, a boundary,
+// or, in the tiles layout, a 128-row tile) and its first union group. m and
+// kb follow the interval and the next boundary.
 template <int LAYOUT>
-__device__ __forceinline__ void stage_chunk(bf16* buf, const bf16* __restrict__ x, int n, int c,
-                                            int row0, int tid) {
-  const int groups = CH * c / 8;
+__device__ __forceinline__ void p1_next(const P1Sched& sc, int& m, int& kb, int& g, int g_end,
+                                        int sg, int& row0, int& n, int& g0) {
+  while (g >= sc.u_pre[m + 1]) ++m;
+  while (kb < sc.nbnd && sc.bnd_ug[kb] <= g) ++kb;
+  row0 = sc.u_lo[m] + (g - sc.u_pre[m]) * 8;
+  n = min(sg, min(g_end, sc.u_pre[m + 1]) - g);
+  if (kb < sc.nbnd) n = min(n, sc.bnd_ug[kb] - g);
+  if (LAYOUT == TILES) n = min(n, (128 - (row0 & 127)) / 8);
+  g0 = g;
+  g += n;
+}
+
+// rows [row0, row0 + 8 n) of x into `dst`, credited to `bar`: one copy per
+// bit of n, the largest first, each landing after the one before. rows
+// layout: [8 n][C]; cols and tiles: per copy of 2^b groups, [C][8 * 2^b].
+template <int LAYOUT>
+__device__ __forceinline__ void p1_fetch(const P1Maps& maps, bf16* dst, int row0, int n, int c,
+                                         uint64_t* bar) {
+  gcd::mbar_arrive_expect_tx(bar, (uint32_t)(n * 8 * c * (int)sizeof(bf16)));
+  for (int b = P1_NMAPS - 1; b >= 0; --b) {
+    if (!(n & (1 << b))) continue;
+    const uint64_t map = reinterpret_cast<uint64_t>(&maps.m[b]);
+    const uint32_t d = gcd::smem_addr(dst), br = gcd::smem_addr(bar);
+    if (LAYOUT == ROWS) {
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(d), "l"(map), "r"(0), "r"(row0), "r"(br)
+          : "memory");
+    } else if (LAYOUT == COLS) {
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(d), "l"(map), "r"(row0), "r"(0), "r"(br)
+          : "memory");
+    } else {
+      asm volatile(
+          "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(d), "l"(map), "r"(row0 & 127), "r"(0),
+          "r"(row0 >> 7), "r"(br)
+          : "memory");
+    }
+    dst += (8 << b) * c;
+    row0 += 8 << b;
+  }
+}
+
+// element (row r, channel ch) of x
+template <int LAYOUT>
+__device__ __forceinline__ float p1_at(const bf16* __restrict__ x, int n, int c, int r, int ch) {
+  const int64_t off = LAYOUT == ROWS   ? (int64_t)r * c + ch
+                      : LAYOUT == COLS ? (int64_t)ch * n + r
+                                       : ((int64_t)(r >> 7) * c + ch) * 128 + (r & 127);
+  return __bfloat162float(x[off]);
+}
+
+// Adds this thread's share of a stage of n groups to acc. rows: the stage
+// is [8 n][C]; thread (ly, tx) takes rows ly + m lanes of channels 8 tx ..
+// 8 tx + 7. cols, tiles: the stage is, per copy of 2^b groups (largest
+// first), [C][8 * 2^b]; thread ch takes every group of channel ch, starting
+// at a group that depends on ch so that neighbouring channels read other
+// banks, each group's 8 rows summed first.
+template <int LAYOUT>
+__device__ __forceinline__ void p1_accumulate(const bf16* st, int c, int n, int ly, int lanes,
+                                              int tx, float* acc) {
   if (LAYOUT == ROWS) {
-    const bf16* src = x + (int64_t)row0 * c;
-    for (int q = tid; q < groups; q += THREADS) cp_async16(buf + q * 8, src + q * 8);
-  } else {
-    for (int q = tid; q < groups; q += THREADS) {
-      const int ch = q / (CH / 8);
-      const int r = row0 + (q % (CH / 8)) * 8;
-      bf16* dst = buf + q * 8;
-      const int64_t off = col_offset<LAYOUT>(n, c, r, ch);
-      if ((r & 7) == 0 && (off & 7) == 0) {
-        cp_async16(dst, x + off);
-      } else {
+#pragma unroll 2
+    for (int r = ly; r < 8 * n; r += lanes) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(st + r * c + tx * 8), f);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = x[col_offset<LAYOUT>(n, c, r + e, ch)];
+      for (int e = 0; e < 8; ++e) acc[e] += f[e];
+    }
+  } else {
+    int j = tx % n;
+    for (int i = 0; i < n; ++i) {
+      int done = 0, b = P1_NMAPS - 1;
+      for (;; --b) {  // the copy that holds group j
+        if (!(n & (1 << b))) continue;
+        if (j < done + (1 << b)) break;
+        done += 1 << b;
       }
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(st + done * 8 * c + (tx << b) * 8 + (j - done) * 8),
+              f);
+      acc[0] += ((f[0] + f[1]) + (f[2] + f[3])) + ((f[4] + f[5]) + (f[6] + f[7]));
+      j = j + 1 == n ? 0 : j + 1;
     }
   }
 }
 
-template <int LAYOUT>
-__global__ void __launch_bounds__(THREADS)
-window_sum_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ ws,
-                  float* __restrict__ out, int n, int c, int window, int buffers) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* bufs = reinterpret_cast<bf16*>(smem_raw);
-  const int chunk = CH * c;  // elements
-  float* red = reinterpret_cast<float*>(smem_raw + (size_t)buffers * chunk * sizeof(bf16));
-  const int tid = threadIdx.x;
-  const int w0 = ws[blockIdx.x];
-  const int nchunks = window / CH;
+// bf16 values of a ring slot: a stage of sg groups, and room for the
+// threads' sums at a segment's end, which take the slot just read
+__host__ __device__ __forceinline__ int p1_slot_elems(int c, int sg) {
+  const int elems = max(sg * 8 * c, 2 * P1_PART);
+  return (elems + 63) / 64 * 64;  // 128-byte aligned slots
+}
 
-  // ROWS: thread (ty, tx) sums rows ty, ty + lanes, ... of its 8 channels.
-  // COLS/TILES: thread sums up to 4 fixed runs of 8 rows of one channel.
+// scratch: float [grid][2 P1_CL wpb - 1][C], the blocks' segment sums
+template <int LAYOUT>
+__global__ void __cluster_dims__(P1_CL, 1, 1) __launch_bounds__(THREADS)
+window_sum_kernel(const __grid_constant__ P1Maps maps, const bf16* __restrict__ x,
+                  const int32_t* __restrict__ ws, float* __restrict__ out,
+                  float* __restrict__ scratch, int n, int c, int nb, int window, int buffers,
+                  int sg, int wpb) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) unsigned char p1_smem[];
+  const int slot_elems = p1_slot_elems(c, sg);
+  const int nw = P1_CL * wpb;  // windows of the cluster
+  const int nseg = 2 * nw - 1;
+  bf16* ring = reinterpret_cast<bf16*>(p1_smem);                         // [buffers][slot]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + buffers * slot_elems);  // [2]
+  uint64_t* empty = full + 2;                                             // [2]
+  P1Sched& sc = *reinterpret_cast<P1Sched*>(empty + 2);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int b0 = blockIdx.x - rank;  // the cluster's first block
+  const int w0 = b0 * wpb;           // and window
+  float* seg = scratch + (int64_t)blockIdx.x * nseg * c;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      gcd::mbar_init(full + s, 1);
+      gcd::mbar_init(empty + s, THREADS / 32);
+    }
+    gcd::fence_barrier_init();
+  }
+  p1_schedule(sc, reinterpret_cast<int*>(ring), ws, nb, window, w0, nw, tid);
+  __syncthreads();
+
+  const int g_lo = (int)((int64_t)rank * sc.gt / P1_CL);
+  const int g_hi = (int)((int64_t)(rank + 1) * sc.gt / P1_CL);
+
+  // the producer, lane 0 of the last warp: stages j .. j + buffers - 1 in
+  // flight; a slot is taken again once every warp has released it
+  const bool producer = tid == THREADS - 32;
+  int pm = 0, pkb = 0, pg = g_lo;
+  if (producer) {
+    for (int s = 0; s < buffers && pg < g_hi; ++s) {
+      int row0, cnt, g0;
+      p1_next<LAYOUT>(sc, pm, pkb, pg, g_hi, sg, row0, cnt, g0);
+      p1_fetch<LAYOUT>(maps, ring + s * slot_elems, row0, cnt, c, full + s);
+    }
+  }
+
+  // rows: thread (ly, tx), `lanes` of them a channel slice; cols, tiles:
+  // thread ch < C. Each keeps its sums of the current segment in registers.
   const int c8 = c / 8;
-  const int lanes = THREADS / c8;
-  const int tx = tid % c8;
-  const int ty = tid / c8;
-  const int items = c * (CH / 8);
+  const int lanes = LAYOUT == ROWS ? THREADS / c8 : 1;
+  const int ly = LAYOUT == ROWS ? tid / c8 : 0;
+  const int tx = LAYOUT == ROWS ? tid % c8 : tid;
+  const bool works = LAYOUT == ROWS ? ly < lanes : tid < c;
   float acc[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  const int nbnd = sc.nbnd;
+  int k = 0;  // the segment being summed, and the union group it ends at
+  int next = nbnd > 1 ? sc.bnd_ug[1] : INT_MAX;
 
-  auto consume = [&](const bf16* buf) {
-    float f[8];
-    if (LAYOUT == ROWS) {
-      if (ty < lanes) {
-        for (int r = ty; r < CH; r += lanes) {
-          unpack8(*reinterpret_cast<const uint4*>(buf + r * c + tx * 8), f);
+  int cm = 0, ckb = 0, cgp = g_lo;
+  for (int j = 0; cgp < g_hi; ++j) {
+    int row0, cnt, g0;
+    p1_next<LAYOUT>(sc, cm, ckb, cgp, g_hi, sg, row0, cnt, g0);
+    while (g0 >= next) {  // the stage lies in a later segment
+      ++k;
+      next = k + 1 < nbnd ? sc.bnd_ug[k + 1] : INT_MAX;
+    }
+    const int slot = buffers == 2 ? (j & 1) : 0;
+    const uint32_t phase = (uint32_t)((buffers == 2 ? j >> 1 : j) & 1);
+    gcd::mbar_wait(full + slot, phase);
+    bf16* st = ring + slot * slot_elems;
+    if (works) p1_accumulate<LAYOUT>(st, c, cnt, ly, lanes, tx, acc);
+    if (g0 + cnt >= next || cgp >= g_hi) {
+      // segment k, or the block's share of it, ends with this stage: the
+      // threads' sums go into the slot just read, and thread ch < C adds
+      // them in lane order into the segment's sum
+      float* part = reinterpret_cast<float*>(st);
+      __syncthreads();
+      if (works) {
+        if (LAYOUT == ROWS) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] += f[e];
+          for (int e = 0; e < 8; ++e) part[ly * c + tx * 8 + e] = acc[e];
+        } else {
+          part[tid] = acc[0];
         }
       }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = tid + j * THREADS;
-        if (q < items) {
-          unpack8(*reinterpret_cast<const uint4*>(buf + q * 8), f);
-          acc[j] += ((f[0] + f[1]) + (f[2] + f[3])) + ((f[4] + f[5]) + (f[6] + f[7]));
-        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before copies refill it
+      __syncthreads();
+      if (tid < c) {
+        float t = 0.f;
+        for (int l = 0; l < lanes; ++l) t += part[l * c + tid];
+        seg[k * c + tid] = t;
       }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
     }
-  };
-
-  if (buffers == 2) {
-    stage_chunk<LAYOUT>(bufs, x, n, c, w0, tid);
-    cp_async_commit();
-    for (int j = 0; j < nchunks; ++j) {
-      if (j + 1 < nchunks)
-        stage_chunk<LAYOUT>(bufs + ((j + 1) & 1) * chunk, x, n, c, w0 + (j + 1) * CH, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      consume(bufs + (j & 1) * chunk);
-      __syncthreads();
-    }
-  } else {
-    for (int j = 0; j < nchunks; ++j) {
-      stage_chunk<LAYOUT>(bufs, x, n, c, w0 + j * CH, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      consume(bufs);
-      __syncthreads();
+    __syncwarp();
+    if ((tid & 31) == 0) gcd::mbar_arrive(empty + slot);
+    if (producer && pg < g_hi) {
+      gcd::mbar_wait(empty + slot, phase);
+      int prow, pcnt, pg0;
+      p1_next<LAYOUT>(sc, pm, pkb, pg, g_hi, sg, prow, pcnt, pg0);
+      p1_fetch<LAYOUT>(maps, ring + slot * slot_elems, prow, pcnt, c, full + slot);
     }
   }
+  cluster.sync();  // every block's segment sums are written
 
-  // partial sums are added in a fixed order: the same result on every run
-  if (LAYOUT == ROWS) {
-    if (ty < lanes) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) red[ty * c + tx * 8 + e] = acc[e];
+  // the block's windows, one thread a (window, channel)
+  const float* cseg = scratch + (int64_t)b0 * nseg * c;
+  for (int it = tid; it < wpb * c; it += THREADS) {
+    const int win = blockIdx.x * wpb + it / c, ch = it % c;
+    if (win >= nb) break;
+    const int s = ws[win];
+    const int bl = p1_body_lo(s), bh = p1_body_hi(s, window);
+    float total = 0.f;
+    if (bl >= bh) {
+      for (int r = s; r < s + window; ++r) total += p1_at<LAYOUT>(x, n, c, r, ch);
+    } else {
+      for (int r = s; r < bl; ++r) total += p1_at<LAYOUT>(x, n, c, r, ch);
+      int k0 = 0;
+      while (sc.bnd[k0] != bl) ++k0;
+      for (int kk = k0; sc.bnd[kk] != bh; ++kk) {
+        const int u0 = sc.bnd_ug[kk], u1 = sc.bnd_ug[kk + 1];
+        float t = 0.f;
+        for (int b = 0; b < P1_CL; ++b) {
+          const int lo = (int)((int64_t)b * sc.gt / P1_CL);
+          const int hi = (int)((int64_t)(b + 1) * sc.gt / P1_CL);
+          if (max(u0, lo) < min(u1, hi)) t += cseg[((int64_t)b * nseg + kk) * c + ch];
+        }
+        total += t;
+      }
+      for (int r = bh; r < s + window; ++r) total += p1_at<LAYOUT>(x, n, c, r, ch);
     }
-    __syncthreads();
-    for (int ch = tid; ch < c; ch += THREADS) {
-      float s = 0.f;
-      for (int l = 0; l < lanes; ++l) s += red[l * c + ch];
-      out[(int64_t)blockIdx.x * c + ch] = s;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = tid + j * THREADS;
-      if (q < items) red[q] = acc[j];
-    }
-    __syncthreads();
-    for (int ch = tid; ch < c; ch += THREADS) {
-      const float* p = red + ch * (CH / 8);
-      out[(int64_t)blockIdx.x * c + ch] = (p[0] + p[1]) + (p[2] + p[3]);
-    }
+    out[(int64_t)win * c + ch] = total;
   }
 }
 
@@ -1086,23 +1330,144 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// groups of 8 rows a stage holds: a power of two, the ring's stages together
+// at most P1_RING_BYTES of x
+int p1_stage_groups(int c, int buffers) {
+  int sg = 1;
+  while (2 * sg <= P1_MAX_SG && buffers * 2 * sg * 8 * c * (int)sizeof(bf16) <= P1_RING_BYTES)
+    sg *= 2;
+  return sg;
+}
+
+// bytes of shared memory a block of P1 takes: the ring, four barriers and the
+// schedule
+int p1_smem_bytes(int c, int buffers) {
+  return buffers * p1_slot_elems(c, p1_stage_groups(c, buffers)) * (int)sizeof(bf16) +
+         4 * (int)sizeof(uint64_t) + (int)sizeof(P1Sched);
+}
+
+template <int LAYOUT>
+cudaError_t p1_allow() {
+  // as many blocks an SM as shared memory holds: the carve-out at its largest
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      window_sum_kernel<LAYOUT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  return carve != cudaSuccess ? carve : allow_smem<window_sum_kernel<LAYOUT>>();
+}
+
+// Windows a block takes: 1, unless the card cannot hold the grid's clusters
+// at once (by its own count), then 2, which halves the clusters and shares
+// each union among twice the windows. The count is cached per (layout, C,
+// buffers).
+template <int LAYOUT>
+int p1_windows_per_block(int c, int nb, int buffers, cudaError_t* err) {
+  static int resident[33][2];  // clusters the card holds at once; 0: not asked yet
+  *err = p1_allow<LAYOUT>();
+  if (*err != cudaSuccess) return 0;
+  int& held = resident[c / 8][buffers - 1];
+  if (!held) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(P1_CL);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = p1_smem_bytes(c, buffers);
+    *err = cudaOccupancyMaxActiveClusters(&held, window_sum_kernel<LAYOUT>, &cfg);
+    if (*err != cudaSuccess) return 0;
+  }
+  return (nb + P1_CL - 1) / P1_CL <= held ? 1 : P1_MAX_WPB;
+}
+
+// floats of the scratch gcd_window_sum needs: the blocks' segment sums
+int64_t p1_scratch_floats(int c, int nb, int wpb) {
+  const int64_t grid = (nb + P1_CL * wpb - 1) / (P1_CL * wpb) * P1_CL;
+  return grid * (2 * P1_CL * wpb - 1) * c;
+}
+
+template <int LAYOUT>
+cudaError_t p1_launch(cudaStream_t st, const P1Maps& maps, const bf16* x, const int32_t* ws,
+                      float* out, float* scratch, int64_t scratch_floats, int n, int c, int nb,
+                      int window, int buffers) {
+  cudaError_t err;
+  const int wpb = p1_windows_per_block<LAYOUT>(c, nb, buffers, &err);
+  if (err != cudaSuccess) return err;
+  if (p1_scratch_floats(c, nb, wpb) > scratch_floats) return cudaErrorInvalidValue;
+  const int grid = (nb + P1_CL * wpb - 1) / (P1_CL * wpb) * P1_CL;
+  window_sum_kernel<LAYOUT><<<grid, THREADS, p1_smem_bytes(c, buffers), st>>>(
+      maps, x, ws, out, scratch, n, c, nb, window, buffers, p1_stage_groups(c, buffers), wpb);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-extern "C" int gcd_window_sum(const void* x, const void* ws, void* out, int n, int c, int nb,
-                              int window, int layout, int buffers, void* stream) {
+// x 16-byte aligned, C a multiple of 8 up to 256, buffers 1 or 2; cols: N a
+// multiple of 8 (the tensor map's pitch is a multiple of 16 bytes); tiles:
+// N a multiple of 128; 0 <= ws[i] <= N - window (not checked)
+extern "C" int gcd_window_sum(const void* x, const void* ws, void* out, void* scratch,
+                              long long scratch_floats, int n, int c, int nb, int window,
+                              int layout, int buffers, void* stream) {
+  if (c < 8 || c > 256 || c % 8 || (buffers != 1 && buffers != 2) || window < 1 ||
+      window > n || ((uintptr_t)x & 15u) || layout < ROWS || layout > TILES ||
+      (layout == COLS && n % 8) || (layout == TILES && n % 128))
+    return (int)cudaErrorInvalidValue;
   if (nb > 0) {
-    const size_t smem = (size_t)buffers * CH * c * sizeof(bf16) + RED_FLOATS * sizeof(float);
+    const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+    if (!encode) return (int)cudaErrorNotSupported;
+    // one map per copy size, 8 << b rows: rows [N][C] as 2-D {C, N}, box
+    // {C, rows}; cols [C][N] as 2-D {N, C}, box {rows, C}; tiles
+    // [N / 128][C][128] as 3-D {128, C, N / 128}, box {rows, C, 1}. A map
+    // whose box is taller than x is never used and left empty.
+    P1Maps maps{};
+    for (int b = 0; b < P1_NMAPS; ++b) {
+      const cuuint32_t h = 8u << b;
+      if (layout != TILES && (int)h > n) break;
+      const cuuint32_t unit[3] = {1, 1, 1};
+      cuuint64_t dims[3], strides[2];
+      cuuint32_t box[3];
+      int rank = 2;
+      if (layout == ROWS) {
+        dims[0] = c, dims[1] = n, strides[0] = (cuuint64_t)c * sizeof(bf16);
+        box[0] = c, box[1] = h;
+      } else if (layout == COLS) {
+        dims[0] = n, dims[1] = c, strides[0] = (cuuint64_t)n * sizeof(bf16);
+        box[0] = h, box[1] = c;
+      } else {
+        rank = 3;
+        dims[0] = 128, dims[1] = c, dims[2] = n / 128;
+        strides[0] = 128 * sizeof(bf16), strides[1] = (cuuint64_t)c * 128 * sizeof(bf16);
+        box[0] = h, box[1] = c, box[2] = 1;
+      }
+      if (encode(&maps.m[b], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(x), dims,
+                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
+    }
     const bf16* xp = (const bf16*)x;
     const int32_t* wp = (const int32_t*)ws;
+    float* op = (float*)out;
     cudaStream_t st = (cudaStream_t)stream;
-    if (layout == ROWS)
-      window_sum_kernel<ROWS><<<nb, THREADS, smem, st>>>(xp, wp, (float*)out, n, c, window, buffers);
-    else if (layout == COLS)
-      window_sum_kernel<COLS><<<nb, THREADS, smem, st>>>(xp, wp, (float*)out, n, c, window, buffers);
-    else
-      window_sum_kernel<TILES><<<nb, THREADS, smem, st>>>(xp, wp, (float*)out, n, c, window, buffers);
+    const cudaError_t err =
+        layout == ROWS
+            ? p1_launch<ROWS>(st, maps, xp, wp, op, (float*)scratch, scratch_floats, n, c, nb, window, buffers)
+        : layout == COLS
+            ? p1_launch<COLS>(st, maps, xp, wp, op, (float*)scratch, scratch_floats, n, c, nb, window, buffers)
+            : p1_launch<TILES>(st, maps, xp, wp, op, (float*)scratch, scratch_floats, n, c, nb, window, buffers);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// windows a block of gcd_window_sum takes for these arguments (1 or 2), and
+// the floats of scratch it needs, or minus a CUDA error
+extern "C" long long gcd_window_sum_plan(int c, int nb, int layout, int buffers, int want_scratch) {
+  if (c < 8 || c > 256 || c % 8 || (buffers != 1 && buffers != 2) || layout < ROWS ||
+      layout > TILES || nb < 0)
+    return -(long long)cudaErrorInvalidValue;
+  cudaError_t err;
+  const int wpb = layout == ROWS   ? p1_windows_per_block<ROWS>(c, nb, buffers, &err)
+                  : layout == COLS ? p1_windows_per_block<COLS>(c, nb, buffers, &err)
+                                   : p1_windows_per_block<TILES>(c, nb, buffers, &err);
+  if (err != cudaSuccess) return -(long long)err;
+  return want_scratch ? p1_scratch_floats(c, nb, wpb) : wpb;
 }
 
 // mode 0: dynamic, 1: static, 2: index_only (out is int32 [n_out]); x 16-byte

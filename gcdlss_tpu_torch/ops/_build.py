@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "gcd_gather_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -34,13 +34,16 @@ SIGNATURES = {
     "gcd_gather_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "gcd_cube_map": (_P, _P, _P, _I, _I, _P),
     "gcd_cube_cand": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "gcd_window_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "gcd_window_sum": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    "gcd_window_sum_plan": (_I, _I, _I, _I, _I),
     "gcd_gather_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gcd_tile_gemm_scratch": (_I, _I, _I),
     "gcd_tile_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gcd_onehot_conv_scratch": (_I, _I, _I),
     "gcd_onehot_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
+
+RESTYPES = {"gcd_window_sum_plan": _L}  # entries that return other than a CUDA error code (int)
 
 
 def _nvcc() -> str:
@@ -103,7 +106,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

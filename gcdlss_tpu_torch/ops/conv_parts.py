@@ -8,10 +8,11 @@ They take the place of the TPU package's Pallas diagnostics under `tools/`
 at the right cost; each part here computes a defined function, so that it can
 be held to a plain version:
 
-  P1 `window_sum`   staging without arithmetic: per block i, the window of
-                    `window` source rows at `ws[i]` goes through shared
-                    memory in chunks and is summed,
-                    out[i, c] = sum_{r < window} x[ws[i] + r, c]
+  P1 `window_sum`   staging without arithmetic: the window of `window`
+                    source rows at `ws[i]` summed,
+                    out[i, c] = sum_{r < window} x[ws[i] + r, c],
+                    with each row of a cluster's windows staged once
+                    (`window_schedule_plain`)
   P2 `gather_sum`   the gather without the product:
                     out[u, c] = sum_k [nbr[u, k] >= 0] x[nbr[u, k], c]
   P3 `tile_gemm`    the product without the gather, on the tensor cores
@@ -45,7 +46,8 @@ from .fused_conv import _check, _cuda_device
 
 LAYOUTS = ("rows", "cols", "tiles")  # [N, C], [C, N], [N / 128, C, 128]
 TILE_ROWS = 128  # rows per tile of the "tiles" layout
-STAGE_ROWS = 32  # rows of a window staged per chunk (P1)
+STAGE_ROWS = 32  # P1: a window is a multiple of this many rows
+WINDOW_CLUSTER = 8  # P1: blocks of a cluster, which stages its windows' union once
 MAX_CHANNELS = 256  # P1, P2: one block covers all channels of a row
 INDEX_MODES = ("dynamic", "static", "index_only")
 ONEHOT_ROWS = 128  # P4: output rows per block (8 strips of 16)
@@ -105,15 +107,118 @@ def window_sum_plain(x: torch.Tensor, ws: torch.Tensor, window: int,
     return (csum[lo + window] - csum[lo]).float()
 
 
+def window_schedule_plain(ws, window: int, per_block: int = 1,
+                          cluster: int = WINDOW_CLUSTER) -> list:
+    """P1's schedule, the rule the kernel stages and adds by, per cluster of
+    `cluster` blocks of `per_block` consecutive windows each (the last
+    cluster may hold fewer windows). Window i = [s, s + window) splits into a
+    head [s, ceil8(s)), a body [ceil8(s), floor8(s + window)) and a tail
+    [floor8(s + window), s + window); a window whose body would be empty
+    reads all its rows as its head. The bodies' union is a sorted list of
+    disjoint 8-aligned intervals of G groups of 8 rows; block b of the cluster stages
+    the union's groups [b G // cluster, (b + 1) G // cluster) in order. The
+    sorted distinct body starts and ends bound the segments. Window i adds
+    its head rows (read from x), then for each segment of its body in order
+    the sums of that segment over the blocks whose share meets it, in rank
+    order, then its tail rows.
+
+    Returns one dict per cluster: "windows" (their indices), "union" (row
+    intervals), "bounds" (segment boundaries), "shares" (per rank, the row
+    intervals it stages) and "parts" (per window: "head" and "tail" row
+    ranges, "segments": [(row range, ranks whose share meets it)])."""
+    ws = [int(s) for s in ws]
+    out = []
+    span = cluster * per_block
+    for c0 in range(0, len(ws), span):
+        idx = list(range(c0, min(c0 + span, len(ws))))
+        body = {i: (-(-ws[i] // 8) * 8, (ws[i] + window) // 8 * 8) for i in idx}
+        live = sorted(b for b in body.values() if b[0] < b[1])
+        union = []
+        for lo, hi in live:
+            if union and lo <= union[-1][1]:
+                union[-1][1] = max(union[-1][1], hi)
+            else:
+                union.append([lo, hi])
+        pre = [0]
+        for lo, hi in union:
+            pre.append(pre[-1] + (hi - lo) // 8)
+        gt = pre[-1]
+
+        def rows_of(g0: int, g1: int) -> list:
+            """Row intervals of the union's groups [g0, g1)."""
+            got = []
+            for (lo, _), p0, p1 in zip(union, pre, pre[1:]):
+                a, b = max(g0, p0), min(g1, p1)
+                if a < b:
+                    got.append((lo + (a - p0) * 8, lo + (b - p0) * 8))
+            return got
+
+        def group_of(row: int) -> int:
+            """Union groups before `row` (a row inside or at the end of an interval)."""
+            for (lo, hi), p0 in zip(union, pre):
+                if lo <= row <= hi:
+                    return p0 + (row - lo) // 8
+            raise AssertionError(f"row {row} is in no interval of the union")
+
+        share = [(b * gt // cluster, (b + 1) * gt // cluster) for b in range(cluster)]
+        bounds = sorted({v for b in live for v in b})
+        parts = {}
+        for i in idx:
+            s, (lo, hi) = ws[i], body[i]
+            if lo >= hi:
+                parts[i] = dict(head=(s, s + window), segments=[], tail=(s + window, s + window))
+                continue
+            segs = []
+            for a, b in zip(bounds, bounds[1:]):
+                if lo <= a and b <= hi:
+                    u0, u1 = group_of(a), group_of(b)
+                    segs.append(((a, b), [r for r, (g0, g1) in enumerate(share)
+                                          if max(u0, g0) < min(u1, g1)]))
+            parts[i] = dict(head=(s, lo), segments=segs, tail=(hi, s + window))
+        out.append(dict(windows=idx, union=[tuple(u) for u in union], bounds=bounds,
+                        shares=[rows_of(g0, g1) for g0, g1 in share], parts=parts))
+    return out
+
+
+def window_per_block(c: int, nb: int, layout: str = "rows", buffers: int = 2) -> int:
+    """Windows a block of P1 takes on the current CUDA device for these
+    arguments: 1, or 2 where the card cannot hold all clusters of one window
+    a block at once (the kernel's choice, by the card's own count)."""
+    return _window_plan(c, nb, layout, buffers, scratch=False)
+
+
+def _window_plan(c: int, nb: int, layout: str, buffers: int, scratch: bool) -> int:
+    """The C entry's windows a block (scratch False) or floats of scratch."""
+    got = _build.library().gcd_window_sum_plan(c, nb, LAYOUTS.index(layout), buffers, int(scratch))
+    if got < 0:
+        _build.check(-got, "window_sum")
+    return got
+
+
+def window_staged_rows(ws, window: int, per_block: int = 1) -> int:
+    """Rows of x that P1 reads: each cluster's union once, plus every
+    window's head and tail (`window_schedule_plain`)."""
+    total = 0
+    for cl in window_schedule_plain(ws, window, per_block):
+        total += sum(hi - lo for lo, hi in cl["union"])
+        total += sum(p["head"][1] - p["head"][0] + p["tail"][1] - p["tail"][0]
+                     for p in cl["parts"].values())
+    return total
+
+
 def window_sum(x: torch.Tensor, ws: torch.Tensor, window: int, layout: str = "rows",
                buffers: int = 2) -> torch.Tensor:
     """P1: out [len(ws), C] f32, out[i] = sum of the `window` rows of x from
-    row ws[i], each window staged through shared memory in chunks of
-    `STAGE_ROWS` rows (`buffers` = 1: load, wait, sum; 2: the next chunk's
-    `cp.async` loads in flight while this one is summed).
+    row ws[i]. A cluster of `WINDOW_CLUSTER` blocks of 1 or 2 windows each
+    (`window_per_block`) stages each row of its windows' union once, through
+    a ring of `buffers` stages (1: load, wait, sum; 2: the next stage's
+    copies in flight while this one is summed), by the rule of
+    `window_schedule_plain`.
 
     x bf16 in `layout`; ws int32 [NB] with 0 <= ws[i] <= N - window (not
-    checked on the card: a start outside reads outside x)."""
+    checked on the card: a start outside reads outside x). On the card x
+    starts on 16 bytes, and the cols layout needs N % 8 == 0 (the copy
+    engine's row pitch is a multiple of 16 bytes)."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}, expected one of {LAYOUTS}")
     if buffers not in (1, 2):
@@ -125,16 +230,26 @@ def window_sum(x: torch.Tensor, ws: torch.Tensor, window: int, layout: str = "ro
     _check(ws, "ws", torch.int32, 1, dev)
     if layout == "tiles" and x.shape[2] != TILE_ROWS:
         raise ValueError(f"tiles layout is [N / {TILE_ROWS}, C, {TILE_ROWS}], got {tuple(x.shape)}")
-    n, c = from_layout(x, layout).shape
+    # the shape of the [N, C] view, without the copy `from_layout` makes of tiles
+    n, c = {"rows": tuple(x.shape), "cols": tuple(x.shape)[::-1],
+            "tiles": (x.shape[0] * TILE_ROWS, x.shape[1])}[layout]
     if c % 8 or not 0 < c <= MAX_CHANNELS:
         raise ValueError(f"window_sum: C must be a multiple of 8 up to {MAX_CHANNELS}, got {c}")
     if window % STAGE_ROWS or not 0 < window <= n:
         raise ValueError(f"window_sum: window must be a multiple of {STAGE_ROWS} "
                          f"up to N = {n}, got {window}")
+    if layout == "cols" and n % 8:
+        raise ValueError(f"window_sum: the cols layout needs N % 8 == 0 on the card, got {n}")
+    if x.data_ptr() % 16:
+        raise ValueError("window_sum: x must start on a 16-byte boundary")
     out = torch.empty((ws.shape[0], c), dtype=torch.float32, device=dev)
+    # the blocks' segment sums, read back by the windows of their cluster
+    floats = _window_plan(c, ws.shape[0], layout, buffers, scratch=True)
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
     rc = _build.library().gcd_window_sum(
-        x.data_ptr(), ws.data_ptr(), out.data_ptr(), n, c, ws.shape[0], window,
-        LAYOUTS.index(layout), buffers, torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), ws.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c,
+        ws.shape[0], window, LAYOUTS.index(layout), buffers,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "window_sum")
     window_sum.launches += 1
     return out

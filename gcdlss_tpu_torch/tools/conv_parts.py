@@ -14,9 +14,10 @@ builds a level-0 plan with `ops/plan.build_unet_plan` from synthetic 64-beam
 scans (`data.synth_scan_points`), K = 27, bf16 activations and weights, f32
 sums, and runs on it
 
-  - P1 `window_sum`: staging only, by source layout (rows / cols / tiles),
-    window (2048 / 6144 rows per block of 256), buffers (1 / 2) and window
-    starts (sequential / random multiples of 8);
+  - P1 `window_sum`: staging only, each row of a cluster's windows once,
+    by source layout (rows / cols / tiles), window (2048 / 6144 rows per
+    block of 256), buffers (1 / 2) and window starts (sequential / random
+    multiples of 8);
   - P2 `gather_sum`: the gather only, with the index read from the book
     (dynamic), replaced by the row itself (static) or alone (index_only),
     the loop over the 27 offsets rolled or unrolled;
@@ -37,9 +38,10 @@ Every mode is first held against its plain version on the same inputs (any
 mismatch exits non-zero), then timed with CUDA events: warm-up, `--reps`
 single calls, each behind a spin kernel so that the interval is device time
 and not the wrapper's host work (`time_ms`), median and quartiles. Where one PyTorch call computes a
-mode's function (P2 dynamic: `embedding_bag` with absent entries as its
-padding index; P2 static: `mul` into f32, as P2 writes; the index sum: `sum`;
-P3: `conv2d` along the rows), that call is held to the plain version and timed
+mode's function (P1 rows, sequential starts: `unfold` and `sum` into f32
+over the unclamped windows; P2 dynamic: `embedding_bag` with absent entries
+as its padding index; P2 static: `mul` into f32, as P2 writes; the index
+sum: `sum`; P3: `conv2d` along the rows), that call is held to the plain version and timed
 too (`library_ms`): a yardstick, used nowhere in the port. One JSON line per mode, then a table of the parts beside
 K1. Without arguments it runs two configurations:
 262,144 rows x 96 channels at 0.05 m voxels (the level-0 geometry), and
@@ -170,23 +172,34 @@ def modes(x, w, nbr, rows: int, channels: int) -> list:
         if win > rows:
             continue
         # random starts are multiples of 8, so that every layout still stages
-        # with 16-byte copies and the modes differ in locality alone
+        # whole groups of 8 rows and the modes differ in locality alone
         ws_cpu = cp.window_starts(rows, BLOCK, win, random=rand, align=8)
         ws = ws_cpu.to(dev)
         covered = torch.zeros(rows + 1, dtype=torch.int32)
         covered.index_add_(0, ws_cpu.long(), torch.ones(nblocks, dtype=torch.int32))
         covered.index_add_(0, ws_cpu.long() + win, -torch.ones(nblocks, dtype=torch.int32))
         union = int((covered.cumsum(0)[:rows] > 0).sum())  # rows that some window reads
-        out.append(dict(
+        # the windows a block takes: the kernel's choice on the card
+        per_block = cp.window_per_block(channels, nblocks, lay, buf) if dev.type == "cuda" else 1
+        mode = dict(
             mode=f"stage {lay} W{win} {'random' if rand else 'sequential'} buffers {buf}",
             kernel="window_sum", part="P1", tpu_tool=tools[lay],
             run=lambda t=layouts[lay], ws=ws, win=win, lay=lay, buf=buf:
                 cp.window_sum(t, ws, win, lay, buf),
             plain=lambda t=layouts[lay], ws=ws, win=win, lay=lay:
                 cp.window_sum_plain(t, ws, win, lay),
-            bytes=nblocks * win * channels * 2 + nblocks * (4 + channels * 4),
+            bytes=(cp.window_staged_rows(ws_cpu, win, per_block) * channels * 2
+                   + nblocks * (4 + channels * 4)),
             min_bytes=union * channels * 2 + nblocks * (4 + channels * 4),
-            flops=0, window=win, layout=lay, buffers=buf))
+            flops=0, window=win, layout=lay, buffers=buf, windows_per_block=per_block)
+        if lay == "rows" and not rand:
+            # the library's yardstick: the windows that start at i * BLOCK
+            # without the clamp at N - window, as one strided sum; the
+            # clamped ones repeat the last of them
+            mode.update(library=lambda win=win: x.unfold(0, win, BLOCK).sum(-1, dtype=torch.float32),
+                        library_view=lambda t, top=(rows - win) // BLOCK:
+                            t[torch.arange(nblocks, device=dev).clamp(max=top)])
+        out.append(mode)
 
     # P2: the gather
     t3 = "tools/fori_diag_bench.py:68"
@@ -256,6 +269,41 @@ def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     """(max|got - ref|, max|ref|) in f64."""
     return (float((got.double() - ref.double()).abs().max()) if ref.numel() else 0.0,
             float(ref.double().abs().max()) if ref.numel() else 0.0)
+
+
+def check_window_sum_case(device, n: int, c: int, window: int, nb: int, kind: str) -> float:
+    """P1 at one `utils.adversarial.WINDOW_SUM_CASES` entry, starts from
+    `utils.adversarial.window_starts`, in every layout that holds it (tiles:
+    N % 128 == 0; cols on the card: N % 8 == 0) with 1 and 2 buffers, each
+    launch counted once: within TOL["P1"] of max|plain|, two launches the same
+    bits. Returns the worst error relative to max|plain|; raises
+    AssertionError on a mismatch."""
+    from ..utils.adversarial import window_starts
+
+    ws = torch.as_tensor(window_starts(n, window, nb, kind, seed=n + nb), device=device)
+    g = torch.Generator().manual_seed(c + nb)
+    x = torch.randn(n, c, generator=g).to(device).to(torch.bfloat16)
+    worst = 0.0
+    for layout in cp.LAYOUTS:
+        if (layout == "tiles" and n % cp.TILE_ROWS) or (layout == "cols" and n % 8):
+            continue
+        held = cp.to_layout(x, layout)
+        ref = cp.window_sum_plain(held, ws, window, layout)
+        for buffers in (1, 2):
+            what = f"P1 {layout} buffers {buffers}, {kind} starts, N {n} C {c} W {window} NB {nb}"
+            before = cp.window_sum.launches
+            got = cp.window_sum(held, ws, window, layout, buffers)
+            again = cp.window_sum(held, ws, window, layout, buffers)
+            if device.type == "cuda" and cp.window_sum.launches != before + 2:
+                raise AssertionError(f"{what}: the kernel did not launch once a call")
+            err, scale = _max_rel(got, ref)
+            if got.shape != ref.shape or not err <= TOL["P1"] * scale:
+                raise AssertionError(f"{what}: shape {tuple(got.shape)}, max|d| {err} above "
+                                     f"{TOL['P1']} x {scale}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two launches differ")
+            worst = max(worst, err / max(scale, 1e-30))
+    return worst
 
 
 def check_gather_sum_case(device, n_out: int, n_in: int, k: int, c: int, kind: str) -> float:
@@ -379,7 +427,7 @@ def run_config(device, rows: int, channels: int, voxel_size: float, reps: int, s
                    gb_per_s=m["bytes"] / med / 1e6, tflop_per_s=m["flops"] / med / 1e9,
                    bound_ms=bound, bound_by=bound_by,
                    max_abs_err=err, ref_scale=scale, tolerance=tol, device=gpu)
-        for key in ("window", "layout", "buffers", "index"):
+        for key in ("window", "layout", "buffers", "windows_per_block", "index"):
             if key in m:
                 row[key] = m[key]
         if m["part"] == "P4":
@@ -403,14 +451,17 @@ def summary(results: list, rows: int, channels: int, gpu: str, kept: float) -> N
              ("product over all offsets, tensor cores (P3)", ms["product"]),
              (f"product at K1's work (P3 x strips kept {kept:.3f})", ms["product"] * kept)]
     if stage in ms:
-        parts.append((f"staging (P1 rows, W {WINDOWS[0]}, 2 buffers)", ms[stage]))
+        parts.append((f"staging, each row once per cluster (P1 rows, W {WINDOWS[0]}, 2 buffers)",
+                      ms[stage]))
     parts.append(("gather as a one-hot product on the tensor cores, whole conv (P4)",
                   ms["onehot"]))
     library = {r["mode"]: r["library_ms"] for r in results}
-    for name, mode in (("row gather by the library (embedding_bag, bf16 out)",
+    for name, mode in (("staging by the library (unfold + sum into f32, unclamped windows)",
+                        stage),
+                       ("row gather by the library (embedding_bag, bf16 out)",
                         "gather dynamic rolled"),
                        ("product by the library (conv2d, bf16 out)", "product")):
-        if library[mode] is not None:
+        if library.get(mode) is not None:
             parts.append((name, library[mode]))
     left = full - ms["gather dynamic rolled"] - ms["product"] * kept
     log(f"parts of K1 at rows {rows}, channels {channels} -> {channels}, K {K} ({gpu}):")

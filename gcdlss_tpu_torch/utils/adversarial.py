@@ -100,3 +100,40 @@ def book(n_out: int, n_in: int, k: int, kind: str, seed: int = 0) -> np.ndarray:
         rows = np.where(rng.random((n_out, k)) < 0.5, n_in - 1, rows)
     present = {"random": 0.3, "last_row": 0.5, "full": 1.0, "one_window": 0.4, "absent": 0.0}[kind]
     return np.where(rng.random((n_out, k)) < present, rows, -1).astype(np.int32)
+
+
+# (N, C, W, NB, starts) of the window staging P1 (`window_starts` kinds
+# below): NB no multiple of the 8 windows a cluster takes, equal starts,
+# starts at 0 and at N - W, unaligned starts, W = 32, N = W, C 8 and 256, N no
+# multiple of 128 (no tiles layout) or of 8 (rows layout only), random
+# starts at W 6144 and C 256, whose union no cluster's shared memory holds,
+# and more clusters than the card holds at once (two windows a block)
+WINDOW_SUM_CASES = (
+    (4096, 96, 2048, 13, "sequential"), (4096, 8, 256, 20, "equal"),
+    (8192, 256, 1024, 9, "ends"), (4096, 16, 32, 37, "unaligned"),
+    (2048, 96, 2048, 5, "sequential"), (16384, 256, 6144, 11, "unaligned"),
+    (1000, 24, 96, 8, "unaligned"), (1003, 8, 992, 3, "ends"),
+    (65536, 256, 6144, 64, "random"), (65536, 256, 512, 700, "unaligned"),
+)
+
+
+def window_starts(n: int, window: int, nb: int, kind: str, seed: int = 0) -> np.ndarray:
+    """int32 [nb] window starts in [0, n - window]: "sequential" (i * 256,
+    clamped at n - window), "equal" (one unaligned start for all), "ends"
+    (0 and n - window in turn), "unaligned" (uniform), "random" (uniform
+    multiples of 8)."""
+    rng = np.random.default_rng(seed)
+    top = n - window
+    if kind == "sequential":
+        ws = np.minimum(np.arange(nb) * 256, top)
+    elif kind == "equal":
+        ws = np.full(nb, min(top, 8 * rng.integers(0, top // 8 + 1) + 3) if top else 0)
+    elif kind == "ends":
+        ws = np.where(np.arange(nb) % 2 == 0, 0, top)
+    elif kind == "unaligned":
+        ws = rng.integers(0, top + 1, size=nb)
+    elif kind == "random":
+        ws = rng.integers(0, top // 8 + 1, size=nb) * 8
+    else:
+        raise ValueError(f"unknown window starts {kind!r}")
+    return ws.astype(np.int32)

@@ -20,6 +20,7 @@ from gcdlss_tpu.ops.plan import build_unet_plan
 from gcdlss_tpu_torch.ops import conv_parts as cp
 from gcdlss_tpu_torch.tools import conv_parts as tool
 from gcdlss_tpu_torch.utils.adversarial import (GATHER_SUM_CASES, ONEHOT_CASES, TILE_GEMM_SHAPES,
+                                                WINDOW_SUM_CASES, window_starts,
                                                 book as adversarial_book)
 
 N = 4096
@@ -283,6 +284,93 @@ def test_window_sum_matches_numpy(book, layout, random):
     _close(got.numpy(), ref.astype(np.float32))
 
 
+@pytest.mark.parametrize("n,c,window,nb,kind", WINDOW_SUM_CASES)
+def test_window_sum_plain_on_adversarial_cases(n, c, window, nb, kind):
+    """P1's plain version (the wrapper on CPU tensors) against numpy f64
+    window sums at `WINDOW_SUM_CASES`, in every layout that holds N."""
+    ws = window_starts(n, window, nb, kind, seed=n + nb)
+    assert ws.shape == (nb,) and 0 <= ws.min() and ws.max() <= n - window
+    x = _bf16(np.random.default_rng(nb).standard_normal((n, c)))
+    ref = np.stack([x[s:s + window].astype(np.float64).sum(0) for s in ws])
+    for layout in cp.LAYOUTS:
+        if layout == "tiles" and n % cp.TILE_ROWS:
+            continue
+        got = cp.window_sum(cp.to_layout(torch.tensor(x), layout), torch.as_tensor(ws), window,
+                            layout)
+        _close(got.numpy(), ref.astype(np.float32))
+
+
+def _schedule_cases():
+    """(id, starts, N, W): `WINDOW_SUM_CASES` and the tool's sequential and
+    random starts at both of its shapes and windows."""
+    cases = [(f"{kind}-N{n}-W{w}-NB{nb}", window_starts(n, w, nb, kind, seed=n + nb), n, w)
+             for n, _, w, nb, kind in WINDOW_SUM_CASES]
+    for n, _, _ in tool.DEFAULT_CONFIGS:
+        for w in tool.WINDOWS:
+            for rand in (False, True):
+                ws = cp.window_starts(n, tool.BLOCK, w, random=rand, align=8).numpy()
+                cases.append((f"tool-N{n}-W{w}-{'random' if rand else 'sequential'}", ws, n, w))
+    return cases
+
+
+SCHEDULE_CASES = _schedule_cases()
+
+
+@pytest.mark.parametrize("per_block", [1, 2])
+@pytest.mark.parametrize("ws,n,window", [c[1:] for c in SCHEDULE_CASES],
+                         ids=[c[0] for c in SCHEDULE_CASES])
+def test_window_schedule_counts_every_row_once(ws, n, window, per_block):
+    """P1's rule (`window_schedule_plain`), per cluster of 8 blocks of 1 or 2
+    consecutive windows: the blocks' shares are disjoint 8-aligned row ranges
+    that make up the union of the windows' bodies, so each union row is
+    staged once; each window's head, segments and tail count each of its rows
+    exactly once; each segment lies inside the union, and the ranks it lists
+    are exactly those whose share meets it."""
+    sched = cp.window_schedule_plain(ws, window, per_block)
+    assert [i for cl in sched for i in cl["windows"]] == list(range(len(ws)))
+    span = cp.WINDOW_CLUSTER * per_block
+    assert all(len(cl["windows"]) <= span and len(cl["shares"]) == cp.WINDOW_CLUSTER
+               for cl in sched)
+    for cl in sched:
+        union = np.zeros(n + 1, np.int32)
+        for lo, hi in cl["union"]:
+            assert lo % 8 == 0 and hi % 8 == 0 and 0 <= lo < hi <= n
+            union[lo] += 1
+            union[hi] -= 1
+        union = np.cumsum(union)[:n]
+        assert union.max(initial=0) <= 1
+        owner = np.full(n, -1)
+        staged = np.zeros(n + 1, np.int32)
+        for rank, share in enumerate(cl["shares"]):
+            for lo, hi in share:
+                assert lo % 8 == 0 and hi % 8 == 0
+                staged[lo] += 1
+                staged[hi] -= 1
+                owner[lo:hi] = rank
+        np.testing.assert_array_equal(np.cumsum(staged)[:n], union)
+        assert len(cl["bounds"]) <= 2 * len(cl["windows"])
+        for i in cl["windows"]:
+            part, s = cl["parts"][i], int(ws[i])
+            count = np.zeros(window + 1, np.int32)  # rows s .. s + window - 1
+            pieces = [part["head"], part["tail"]] + [seg for seg, _ in part["segments"]]
+            for lo, hi in pieces:
+                assert s <= lo <= hi <= s + window
+                count[lo - s] += 1
+                count[hi - s] -= 1
+            assert (np.cumsum(count)[:window] == 1).all()
+            for lo, hi in (part["head"], part["tail"]):
+                assert hi - lo < 8 or not part["segments"]
+            for (a, b), ranks in part["segments"]:
+                assert union[a:b].all() and a in cl["bounds"] and b in cl["bounds"]
+                assert ranks == np.unique(owner[a:b]).tolist()
+    if n == 262_144 and window == tool.WINDOWS[0] and not ws[1] % 256:
+        # sequential starts: the union of 8 or 16 windows of 2048 rows 256 apart
+        assert len(sched[0]["union"]) == 1
+        assert sched[0]["union"][0] == (0, (span - 1) * 256 + 2048)
+        staged = cp.window_staged_rows(ws, window, per_block) * 96 * 2
+        assert staged < {1: 95e6, 2: 73e6}[per_block]  # against 403 MB per block
+
+
 def test_wrappers_reject_bad_arguments(book):
     nbr, valid = book
     x, t = torch.tensor(_x(valid, 16, 6)), torch.tensor(nbr)
@@ -321,12 +409,13 @@ def test_tool_prints_one_line_per_mode(capsys, tmp_path):
         assert r["device"].startswith("cpu")
     assert {r["part"] for r in rows} == {"P1", "P2", "P3", "P4", "K1"}
     table = [ln for ln in lines if ln.startswith("  ") and ln.endswith(" of K1")]
-    assert len(table) == 12 and "whole conv" in table[0] and "left over" in table[-1]
+    assert len(table) == 13 and "whole conv" in table[0] and "left over" in table[-1]
     assert len([ln for ln in table if "P3 x strips kept" in ln]) == 1  # the product at K1's work
     # the modes that one PyTorch call computes carry its time, the others null
-    with_library = {"product"} | {m for m in modes if m.startswith("gather ")}
+    with_library = ({"product"} | {m for m in modes if m.startswith("gather ")}
+                    | {m for m in modes if m.startswith("stage rows") and "sequential" in m})
     assert {r["mode"] for r in rows if r["library_ms"] is not None} == with_library
-    assert len([ln for ln in table if "by the library" in ln]) == 2
+    assert len([ln for ln in table if "by the library" in ln]) == 3
 
 
 def test_tool_argument_errors():

@@ -24,7 +24,7 @@ from gcdlss_tpu_torch.ops.plan_kernel import (CUBE_MAP_MAX_K1, cube_candidates_m
                                               cube_candidates_plain, cube_direct_rule,
                                               cube_neighbor_map)
 from gcdlss_tpu_torch.utils.adversarial import (GATHER_SUM_CASES, ONEHOT_CASES, TILE_GEMM_SHAPES,
-                                                neighbor_map_levels)
+                                                WINDOW_SUM_CASES, neighbor_map_levels)
 
 pytestmark = pytest.mark.gpu
 CAPS = (4096, 2048, 1024, 512, 256)
@@ -225,6 +225,17 @@ def test_cube_candidates_matches_plain_and_k3(plan, lvl, k1):
     assert torch.equal(got, cube_neighbor_map(kh, kl, k1))
 
 
+@pytest.mark.parametrize("k1", [3, 5])
+@pytest.mark.parametrize("name", sorted(neighbor_map_levels()))
+def test_cube_candidates_on_adversarial_levels(plan, name, k1):
+    """K4 on the levels no scan makes (caps no multiple of a tile's rows):
+    bit for bit against its plain version, the same bits on every launch,
+    one launch counted, and equal to K3 off the field's faces."""
+    import chip_smoke
+
+    chip_smoke.check_cube_candidates_level(plan.stem_nbr.device, name, k1)
+
+
 def test_plan_kernel_1_builds_the_same_plan(plan):
     lv0 = plan.levels[0]
     other = build_unet_plan(lv0.coords, lv0.valid, CAPS, plan_kernel=1)
@@ -320,6 +331,30 @@ def test_window_sum_unaligned_starts(parts):
             got = cp.window_sum(held, ws, 2048, layout, buffers)
             ref = cp.window_sum_plain(held, ws, 2048, layout)
             torch.testing.assert_close(got, ref, rtol=0, atol=tol["P1"] * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("n,c,window,nb,kind", WINDOW_SUM_CASES)
+def test_window_sum_adversarial(plan, n, c, window, nb, kind):
+    """P1 with NB no multiple of a cluster's 8 windows, equal starts, starts
+    at 0 and N - W, unaligned starts, W = 32, N = W, C 8 .. 256, N no
+    multiple of 128 or 8, random starts at W 6144: every layout that holds
+    the case, 1 and 2 buffers, within 1e-3 of max|plain|, two launches the
+    same bits, one launch counted each."""
+    from gcdlss_tpu_torch.tools.conv_parts import check_window_sum_case
+
+    check_window_sum_case(plan.stem_nbr.device, n, c, window, nb, kind)
+
+
+def test_window_sum_refuses_what_the_kernel_does_not_serve(plan):
+    from gcdlss_tpu_torch.ops import conv_parts as cp
+
+    dev = plan.stem_nbr.device
+    ws = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="N % 8"):  # the copy engine's pitch: N * 2 bytes
+        cp.window_sum(torch.zeros(16, 1004, dtype=torch.bfloat16, device=dev), ws, 992, "cols")
+    store = torch.zeros(1024 * 16 + 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        cp.window_sum(store[1:1 + 1024 * 16].view(1024, 16), ws, 512)
 
 
 def test_conv_parts_reject_wrong_inputs(parts):

@@ -6,6 +6,8 @@ the join path for tensors on the CPU. They are held against the JAX join path
 and against the JAX Pallas map kernel in interpret mode.
 """
 
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -405,6 +407,76 @@ def test_cube_candidates_plain_equals_join_map_inside_the_field(name):
         p, has = tp._column_ranks(kh != tc.SENTINEL_HI, kh, kl, k1)
         assert torch.equal(tpk.cube_candidates_plain(kh, kl, p, has, k1),
                            tp.join_neighbor_map(kh, kl, k1))
+
+
+# sha256 (first 32 hex digits) of the int32 map and its present entries, as
+# the JAX package's column build `plan._build_cube_neighbor_map` gives it on
+# each level of `neighbor_map_levels()` (seed 13): the arithmetic queries of
+# its v1 route, whose Pallas kernel needs a cap that is a multiple of its
+# block and is v1's exact fallback everywhere else. Frozen because building
+# the fourteen maps in JAX costs over a minute on the CPU; `_jax_v1_digest`
+# rebuilds one (`test_cube_candidates_golden_is_the_jax_column_build`) or,
+# called over the keys, all of them.
+V1_GOLDENS = {
+    ("field_edge", 3): ("a41d00ecf99c2ea54d5c6b9ff9f579fa", 6640),
+    ("field_edge", 5): ("53426f5b4b4478f95de586069f824b9d", 17538),
+    ("all_sentinel", 3): ("682a387ec62c4338e6ba238c81587700", 0),
+    ("all_sentinel", 5): ("b97473e7fefd7d30cea5662a3bbe6a06", 0),
+    ("one_voxel", 3): ("3f1063a562a2198895cf3fdd8e669607", 1),
+    ("one_voxel", 5): ("96b0f905828411084a5809e4ffada052", 1),
+    ("dense_cube", 3): ("f76acee28c9de817e9232368a3047019", 39304),
+    ("dense_cube", 5): ("ad5c2a85a198859f5049239efd754ff7", 157464),
+    ("z_runs", 3): ("b7dd73d58c4fb48b092349c76b07d180", 3950),
+    ("z_runs", 5): ("47d15ec5d9c29b3990d36238b172b37f", 5936),
+    ("four_batches", 3): ("2aad5110c50769b5e70ec57988ff5b19", 5536),
+    ("four_batches", 5): ("d4fb27566e64d9227634744c663d4d18", 17696),
+    ("over_capacity", 3): ("43b9503a052aeab9a40423e4d4d8255f", 7730),
+    ("over_capacity", 5): ("d8ddce7bd73c9c0967bcb2c2eaecabed", 29550),
+}
+
+
+def _digest(nbr) -> tuple:
+    a = np.ascontiguousarray(np.asarray(nbr), dtype=np.int32)
+    return hashlib.sha256(a.tobytes()).hexdigest()[:32], int((a >= 0).sum())
+
+
+@pytest.mark.parametrize("name,k1", sorted(V1_GOLDENS))
+def test_cube_candidates_plain_matches_jax_v1_goldens(name, k1):
+    """K4's plain version on the port's column ranks, on the levels no scan
+    makes (the field's faces and corners, no voxel, one voxel, a full cube,
+    z runs, equal batches, a level cut at its capacity), gives the JAX
+    package's v1 map bit for bit; through the wrapper on CPU tensors too."""
+    _, _, kh, kl = _level_keys(name)
+    p, has = tp._column_ranks(kh != tc.SENTINEL_HI, kh, kl, k1)
+    got = tpk.cube_candidates_plain(kh, kl, p, has, k1)
+    assert got.shape == (LEVELS[name][1], k1 ** 3) and got.dtype == torch.int32
+    assert _digest(got) == V1_GOLDENS[name, k1]
+    assert torch.equal(tpk.cube_candidates_map(kh, kl, p, has, k1), got)
+
+
+def _jax_v1_digest(name: str, k1: int) -> tuple:
+    """The digest of the JAX package's map of one level (a `V1_GOLDENS` entry)."""
+    uh, ul, _, _ = _level_keys(name)
+    lvalid = uh != jc.SENTINEL_HI
+    lcoords = jnp.where(lvalid[:, None], jc.decode_keys(uh, ul), 0)
+    return _digest(jp._build_cube_neighbor_map(lcoords, lvalid, uh, ul, k1))
+
+
+def test_cube_candidates_golden_is_the_jax_column_build():
+    """One golden rebuilt from the JAX package: the level where the
+    arithmetic queries leave the field."""
+    assert _jax_v1_digest("field_edge", 5) == V1_GOLDENS["field_edge", 5]
+
+
+@pytest.mark.parametrize("k1", [3, 5])
+@pytest.mark.parametrize("name", sorted(LEVELS))
+def test_cube_candidates_equals_k3_off_the_field_faces(name, k1):
+    """The check the card runs on K4 (`chip_smoke.check_cube_candidates_level`),
+    here on the plain versions: K4 equals its plain version and, on every row
+    but those within k1 // 2 of the field's faces, K3's map."""
+    import chip_smoke
+
+    chip_smoke.check_cube_candidates_level(torch.device("cpu"), name, k1)
 
 
 def test_cube_neighbor_map_refuses_what_the_kernel_does_not_serve():
