@@ -53,16 +53,23 @@ Phases, each of which raises on failure:
      through the port's `SemanticKITTIDataset` and `PrefetchLoader`
      (per-scan seeds: the same batches, so the same losses, on every run),
      then `validate` on 2 scans;
+  6b. Stage-1.5 slice: `ExpFineTuning` (3 steps at batch 2, Stage 1's caps)
+     and `ExpMixExtraFineTuning` (3 steps, 2 + 2 scans, Stage 2's caps)
+     warm-started from phase 6's model, `ExpMixCosineFineTuning` (2 steps)
+     from fresh weights, MinkUNet34 in bf16; then `rank_uncertain_scans` over
+     2 scans and `threshold_sweep_test` over the valid scans; finite losses,
+     no plan overflow, a non-empty sweep, K1-K3 launched and K4 not;
   7. Stage-2 slice: `ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive` at the
      `bench.py` Stage-2 configuration (MinkUNet34, bf16, 2 + 2 scans), 3
      steps with `plan_kernel=2` and 1 with `plan_kernel=1` through its own
      loaders, then `validate` on 4 scans.
 
-Each path (the tool's `main`, the Stage-1 slice, the Stage-2 slice) sets
-every kernel's launch count to 0 just before it and reads it just after: each
-kernel of its path must have launched. Every kernel row carries its bound,
-the least time the card could take for the same work: the larger of its bytes
-(each input read once, each output written once) over 3.35 TB/s and its
+Each path (the tool's `main`, the Stage-1 slice, each run of the Stage-1.5
+slice, the Stage-2 slice) sets every kernel's launch count to 0 just before
+it and reads it just after: each kernel of its path must have launched.
+Every kernel row carries its bound, the least time the card could take for
+the same work: the larger of its bytes (each input read once, each output
+written once) over 3.35 TB/s and its
 operations (those this run's data needs: present entries only) over 989
 TFLOP/s, the published H100 SXM peaks; `bound_measured_ms` is the same with
 the copy bandwidth and the bf16 matmul rate measured in this run;
@@ -842,6 +849,132 @@ def stage1_phase(device, gpu_name: str) -> dict:
         raise AssertionError(f"stage1: a kernel was not launched: {launches}")
     if launches["K4"] != 0:
         raise AssertionError(f"stage1: K4 launched on the default K3 route: {launches}")
+    weights = {k: v.detach().cpu() for k, v in module.state.model.state_dict().items()}
+    return launches, weights
+
+
+S15_RUNS = (  # (registry recipe, voxel caps, scans a step, warm start, steps)
+    ("ExpFineTuning", CAP0, BATCH, True, 3),
+    ("ExpMixExtraFineTuning", S2_CAP0, 2 * BATCH, True, 3),
+    ("ExpMixCosineFineTuning", CAP0, BATCH, False, 2),  # a linear `final` fits no cosine head
+)
+
+
+def stage15_phase(device, card: str, pretrained: dict) -> dict:
+    """Stage 1.5 as a user runs it, on the port's own datasets and loaders:
+    `ExpFineTuning` and `ExpMixExtraFineTuning` warm-started from the Stage-1
+    phase's model, `ExpMixCosineFineTuning` from fresh weights (S15_RUNS),
+    then `rank_uncertain_scans` over 2 unlabeled scans with the fine-tuned
+    model and `threshold_sweep_test` (ExpRCTest) over the valid scans with the
+    Extra-tuned one. Every plan's overflow is read on the same batches outside
+    the runs. Returns the kernels' launches per run and in all."""
+    import torch
+
+    from gcdlss_tpu_torch.data import SemanticKITTIDataset
+    from gcdlss_tpu_torch.eval.sweep import threshold_sweep_test
+    from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan import build_unet_plan, plan_capacity_overflow
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+    from gcdlss_tpu_torch.train.common import default_caps, voxel_batch_to_device
+    from gcdlss_tpu_torch.train.discover import _combine_batches
+    from gcdlss_tpu_torch.train.finetune import ExpFineTuning
+    from gcdlss_tpu_torch.train.registry import finetune_config
+    from gcdlss_tpu_torch.train.uncertainty import rank_uncertain_scans
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    unknown, mapping, inv, unk = label_space()
+    fields = dict(num_labeled_classes=17, num_classes=19, unknown_label=unk, arch="MinkUNet34",
+                  planes=DEFAULT_PLANES, dtype="bfloat16", steps_per_epoch=3, epochs=50)
+    common = dict(voxel_size=VOXEL_SIZE, label_mapping=mapping, unknown_labels=unknown)
+    launches, modules = {}, {}
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[tag] = {name: k.launches for name, k in kernels.items()}
+        return out, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = Path(tmp)
+        write_kitti_tree(root, np.random.default_rng(6), 12, BATCH)
+
+        def dataset(n_lab: int, labeled: bool, augment: bool = True):
+            return SemanticKITTIDataset(str(root), "train", split_indices=np.arange(n_lab),
+                                        labeled=labeled, downsampling=POINTS_PER_SCAN,
+                                        augment=augment, resize_aug=labeled and augment,
+                                        seed=0 if labeled else 1, **common)
+
+        for name, cap0, scans, warm, steps in S15_RUNS:
+            caps = default_caps(cap0)
+            _, cfg = finetune_config(name, voxel_caps=caps, batch_size=scans, **fields)
+            module = ExpFineTuning(cfg, pretrained if warm else None, seed=0, device=device)
+            sides = ((dataset(2 * steps, True), dataset(2 * steps, False)) if module.extra
+                     else (dataset(scans * steps, True),))
+            _, peak = counted(name, lambda: module.train_epoch(
+                *module.make_loaders(*sides, batch_size=scans, num_workers=2)))
+            # the same batches again (per-scan seeds), for the plans' overflow
+            overflow = []
+            for batch in zip(*module.make_loaders(*sides, batch_size=scans, num_workers=2)):
+                vbs = [voxel_batch_to_device(b["voxel"], device) for b in batch]
+                vb = _combine_batches(*vbs, cfg) if module.extra else vbs[0]
+                overflow.append(plan_capacity_overflow(build_unet_plan(
+                    vb["coords"], vb["valid"], caps, presorted=True)))
+            overflow = torch.stack(overflow).tolist()
+            terms = ("loss", "seg", "calib") + (("unsup_seg", "thr") if module.extra else ())
+            for i, s in enumerate(module.step_log):
+                log(f"stage1.5 {name} step {i}: " + " ".join(f"{k} {s[k]:.6f}" for k in terms)
+                    + f" | plan_overflow {overflow[i]} | device time {s['step_ms']:.1f} ms "
+                    f"({card})")
+            log(f"stage1.5 {name}: peak memory {peak:.3f} GiB ({card}); launches "
+                f"{launches[name]}")
+            if len(module.step_log) != steps or len(overflow) != steps:
+                raise AssertionError(f"stage1.5 {name}: {len(module.step_log)} steps, "
+                                     f"expected {steps}")
+            bad = [(i, k) for i, s in enumerate(module.step_log) for k in terms
+                   if not np.isfinite(s[k])]
+            if bad:
+                raise AssertionError(f"stage1.5 {name}: non-finite (step, term): {bad}")
+            if any(overflow):
+                raise AssertionError(f"stage1.5 {name}: a plan dropped voxels: {overflow}")
+            modules[name] = module
+
+        caps = default_caps(CAP0)
+        _, ucfg = finetune_config("ExpUncertaintyCheck", voxel_caps=caps, batch_size=BATCH,
+                                  **fields)
+        (order, scores), _ = counted("rank", lambda: rank_uncertain_scans(
+            modules["ExpFineTuning"].state.model, dataset(10, False, augment=False), ucfg,
+            caps[0]))
+        log(f"stage1.5 rank_uncertain_scans: order {order.tolist()} scores "
+            f"{[round(float(x), 6) for x in scores]}")
+        if sorted(order.tolist()) != [0, 1] or not np.isfinite(scores).all():
+            raise AssertionError(f"stage1.5: ranking {order} of scores {scores}")
+
+        _, tcfg = finetune_config("ExpRCTest", voxel_caps=caps, batch_size=BATCH, **fields)
+        val_ds = SemanticKITTIDataset(str(root), "valid", **common)
+        known = [k for k, v in mapping.items() if v != unk]
+        novel = [k for k, v in mapping.items() if v == unk]
+        sweep, _ = counted("sweep", lambda: threshold_sweep_test(
+            modules["ExpMixExtraFineTuning"].state.model, val_ds, tcfg, inv, known, novel,
+            num_workers=2, point_cap=POINTS_PER_SCAN))
+    for t, r in sweep.items():
+        log(f"stage1.5 sweep threshold {t}: mIoU {r['mIoU']:.6f} old {r['mIoU_old']:.6f} "
+            f"new {r['mIoU_new']:.6f} points {int(r['conf'].sum())}")
+    if not all(r["conf"].sum() > 0 for r in sweep.values()):
+        raise AssertionError("stage1.5: an empty sweep confusion matrix")
+    launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
+    log(f"stage1.5: launches {launches}")
+    if not all(launches["total"][k] > 0 for k in ("K1", "K2", "K3")):
+        raise AssertionError(f"stage1.5: a kernel was not launched: {launches['total']}")
+    if launches["total"]["K4"] != 0:
+        raise AssertionError(f"stage1.5: K4 launched on the default K3 route: {launches}")
     return launches
 
 
@@ -969,14 +1102,17 @@ def main() -> int:
     reference_phase(device)
     plan_sync_phase(device)
     part_rows, launches_parts = conv_parts_phase(device, card)
-    launches_s1 = stage1_phase(device, gpu_name)
+    launches_s1, s1_weights = stage1_phase(device, gpu_name)
+    launches_s15 = stage15_phase(device, card, s1_weights)
     launches_s2 = stage2_phase(device, gpu_name)
     # `launches`: K1-K4 on the Stage-2 path (the training path that runs all
-    # four; `launches_stage1` the Stage-1 path), P1-P4 in the tool's main run
-    # (their only path; K1's launches there are `launches_parts`)
+    # four; `launches_stage1` the Stage-1 path, `launches_stage15` the
+    # Stage-1.5 phase), P1-P4 in the tool's main run (their only path; K1's
+    # launches there are `launches_parts`)
     for r in rows:
         r["launches"] = launches_s2[r["name"][:2]]
         r["launches_stage1"] = launches_s1[r["name"][:2]]
+        r["launches_stage15"] = launches_s15["total"][r["name"][:2]]
         if r["name"][:2] == "K1":
             r["launches_parts"] = launches_parts["K1"]
     for r in part_rows:
@@ -984,7 +1120,8 @@ def main() -> int:
     rows += part_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_stage1", "launches_parts", "bound_measured_ms", "bound_dense_ms", "fill",
+    extra = ("launches_stage1", "launches_stage15", "launches_parts", "bound_measured_ms",
+             "bound_dense_ms", "fill",
              "far_entries",
              "strips_kept", "pairs", "dw_only_ms", "ranks_plus_kernel_ms", "k3_ms")
     missing = [(r["name"], k) for r in rows for k in keys if k not in r]

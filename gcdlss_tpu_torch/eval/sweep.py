@@ -1,0 +1,89 @@
+"""RC-threshold sweep test protocol, ExpRCTest (PyTorch port of
+`gcdlss_tpu/eval/sweep.py`).
+
+Rebuild of the reference's test-only module (`modules/exp.py:3000-3290`):
+forward the fine-tuned RC model over the validation set and, for each
+novel-score threshold of a sweep, force the points whose NCC probability
+exceeds it into the unknown slot; then map predictions to real-label ids and
+score each threshold with the strict-Hungarian protocol (`exp.py:3108-3135`).
+ExpMixExtraTest's subdivision of the novel points into two classes
+(`subdivide=True`) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.minkunet import assemble_dummy_logits
+from ..train.common import plan_and_gather, point_batch_to_device, voxel_batch_to_device
+from .metrics import strict_hungarian_iou
+
+DEFAULT_THRESHOLDS = (0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8)
+
+
+@torch.no_grad()
+def _sweep_fwd(model, vb: dict, pb: dict, cfg):
+    """One eval forward: voxel-level dummy probs, and for each point its plan
+    row, validity and label."""
+    model.eval()
+    plan, feats0, _, _ = plan_and_gather(vb, cfg.voxel_caps)
+    probs = torch.softmax(assemble_dummy_logits(model(plan, feats0)), dim=-1)
+    n_in = vb["coords"].shape[0]
+    vrow = pb["voxel_row"].reshape(-1)
+    okp = vrow < n_in
+    prow = plan.inverse[torch.where(okp, vrow, 0).long()]
+    okp = okp & (prow < cfg.voxel_caps[0])
+    srow = torch.where(okp, prow, 0)
+    pvalid = pb["valid"].reshape(-1) & okp
+    return probs, srow, pvalid, pb["labels"].reshape(-1)
+
+
+def threshold_sweep_test(model, val_dataset, cfg, label_mapping_inv: dict,
+                         known_real_labels, unknown_real_labels,
+                         thresholds=DEFAULT_THRESHOLDS, subdivide: bool = False,
+                         num_workers: int = 0, point_cap: int | None = None) -> dict:
+    """Returns {threshold: {"mIoU", "mIoU_old", "mIoU_new", "conf"}}, `conf`
+    the [D, D] point confusion the IoUs come from. The model runs on its own
+    device; each batch's probabilities are read once."""
+    from ..data import PrefetchLoader
+
+    if subdivide:
+        raise NotImplementedError(
+            "threshold_sweep_test(subdivide=True), ExpMixExtraTest's KMeans(2) split of the "
+            "novel points, is not ported yet (ROADMAP Queue 1 item 6, evaluation and the "
+            "discovery family)")
+    K, D = cfg.num_labeled_classes, cfg.num_classes
+    # train-id -> real-id LUT, the unknown slot last (`exp.py:3062-3065`)
+    inv = np.zeros(K + 1, np.int64)
+    for tid, real in label_mapping_inv.items():
+        if 0 <= tid < K:
+            inv[tid] = real
+    inv[K] = unknown_real_labels[0]
+
+    device = next(model.parameters()).device
+    loader = PrefetchLoader(val_dataset, cfg.num_sup_scans * 2, cfg.voxel_caps[0],
+                            point_cap=point_cap, shuffle=False, num_workers=num_workers,
+                            drop_last=False)
+    confs = {t: np.zeros((D, D), np.int64) for t in thresholds}
+    for batch in loader:
+        probs, srow, pvalid, labels = (t.cpu().numpy() for t in _sweep_fwd(
+            model, voxel_batch_to_device(batch["voxel"], device),
+            point_batch_to_device(batch["points"], device), cfg))
+        base_pred = probs.argmax(-1)  # 0..K (K = the unknown slot)
+        rc = probs[:, -1]
+        m = pvalid & (labels >= 0) & (labels < D)
+        for t in thresholds:
+            pred = np.where(rc > t, K, base_pred)
+            np.add.at(confs[t], (inv[pred][srow][m], labels[m]), 1)
+
+    results = {}
+    for t, conf in confs.items():
+        iou, _ = strict_hungarian_iou(conf, D)
+        results[t] = {
+            "mIoU": float(iou.mean()),
+            "mIoU_old": float(iou[np.asarray(known_real_labels)].mean()),
+            "mIoU_new": float(iou[np.asarray(unknown_real_labels)].mean()),
+            "conf": conf,
+        }
+    return results

@@ -4,7 +4,8 @@
   * calibration loss: the GT logit suppressed to `NEG_INF`, target the
     unknown slot;
   * mean-teacher MSE consistency on softmax probabilities;
-  * the learnable-threshold hinge pair of the NCC head.
+  * the learnable-threshold hinge pair of the NCC head;
+  * CE against soft targets (the feature-mixing rows of Stage 1.5).
 """
 
 from __future__ import annotations
@@ -70,3 +71,14 @@ def adaptive_threshold_loss(ncc_logits: torch.Tensor, labels: torch.Tensor,
 
     return (masked_mean(torch.relu(ncc_logits - tau), known)
             + masked_mean(torch.relu(tau - ncc_logits), unknown))
+
+
+def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,
+                       valid: torch.Tensor | None = None) -> torch.Tensor:
+    """CE against soft target rows, f32: the mean over all rows, or over the
+    valid ones."""
+    nll = -(target_probs * torch.log_softmax(logits.float(), dim=-1)).sum(dim=-1)
+    if valid is None:
+        return nll.mean()
+    m = valid.float()
+    return (nll * m).sum() / m.sum().clamp(min=1.0)

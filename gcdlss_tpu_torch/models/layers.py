@@ -122,3 +122,26 @@ class Linear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+
+def normed_linear(x: torch.Tensor, w: torch.Tensor, scale: float = 10.0) -> torch.Tensor:
+    """`scale * normalize(x, -1) @ normalize(w, 0)`, norms floored at 1e-12."""
+    xn = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
+    wn = w / torch.linalg.vector_norm(w, dim=0, keepdim=True).clamp(min=1e-12)
+    return scale * (xn @ wn)
+
+
+class NormedLinear(nn.Module):
+    """Cosine classifier (reference `models/minkunet.py:34-42`): rows and
+    prototype columns normalised, product scaled by 10, in f32. `weight` is
+    `[Ci, features]`, drawn uniform(-1, 1)."""
+
+    def __init__(self, in_channels: int, out_channels: int, scale: float = 10.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.scale = scale
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels).uniform_(
+            -1.0, 1.0, generator=generator))
+
+    def forward(self, x):
+        return normed_linear(x, self.weight, self.scale)

@@ -3,10 +3,11 @@
 Port of `gcdlss_tpu/models/minkunet.py` (reference `models/minkunet.py:44-132`,
 `models/resnet.py:90-122`, `models/multiheadminkunet.py:309-340`): k=5 stem,
 four k=2 s=2 downs and four transpose ups with skip concatenation, residual
-block stacks per level, and the linear `final` head. Submodules carry the
-reference checkpoint's names (`encoder.conv0p1s1`, `encoder.conv1p1s2`,
-`encoder.block1.0.conv1`, `encoder.block1.0.downsample.0`, `encoder.final`),
-so its state dicts map on key by key (`utils.weights`). Kernel offsets keep
+block stacks per level, and a linear or cosine (`NormedLinear`) `final`
+head. Submodules carry the reference checkpoint's names (`encoder.conv0p1s1`,
+`encoder.conv1p1s2`, `encoder.block1.0.conv1`,
+`encoder.block1.0.downsample.0`, `encoder.final`), so its state dicts map on
+key by key (`utils.weights`). Kernel offsets keep
 this repository's order (z fastest). `MinkUNetSeg` is the Stage-1 model,
 `MinkUNetRC` the Stage-2 one (`gcdlss_tpu/models/minkunet.py:312-395`).
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import (Linear, SparseBatchNorm, SparseConv, SparseDownConv,
+from .layers import (Linear, NormedLinear, SparseBatchNorm, SparseConv, SparseDownConv,
                      SparseUpConv, mask_rows)
 
 # name -> (block type, blocks per stage). Only 'basic' blocks are ported.
@@ -129,8 +130,21 @@ class MinkUNetBackbone(nn.Module):
         return x  # [cap0, planes[7]]
 
 
+HEADS = ("linear", "cosine")
+
+
+def make_head(kind: str, in_channels: int, out_channels: int,
+              generator: torch.Generator | None = None) -> nn.Module:
+    """A `final` / `final2` head: `Linear` or, for "cosine" (the reference's
+    `MinkUNetBaseCosine` / `MinkUNetRCCosine`), `NormedLinear`."""
+    if kind not in HEADS:
+        raise ValueError(f"head must be one of {HEADS}, got {kind!r}")
+    cls = NormedLinear if kind == "cosine" else Linear
+    return cls(in_channels, out_channels, generator=generator)
+
+
 class MinkUNetSeg(nn.Module):
-    """Backbone + linear `final` head: the Stage-1 pretrain model.
+    """Backbone + `final` head (linear or cosine): the Stage-1 pretrain model.
 
     Returns {'logits' [cap0, num_classes] f32, 'feats' [cap0, C] f32}. The
     head is registered inside the encoder (`encoder.final`), where the
@@ -139,12 +153,11 @@ class MinkUNetSeg(nn.Module):
     def __init__(self, num_classes: int, arch: str = "MinkUNet34",
                  planes: tuple = DEFAULT_PLANES, in_channels: int = 1,
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, head: str = "linear"):
         super().__init__()
         self.encoder = MinkUNetBackbone(arch, planes, in_channels, dtype=dtype,
                                         generator=generator)
-        self.encoder.final = Linear(self.encoder.out_channels, num_classes,
-                                    generator=generator)
+        self.encoder.final = make_head(head, self.encoder.out_channels, num_classes, generator)
 
     def forward(self, plan, feats):
         h = self.encoder(plan, feats).float()
@@ -154,7 +167,9 @@ class MinkUNetSeg(nn.Module):
 
 class MinkUNetRC(nn.Module):
     """Backbone + `final` (K known), `final2` (NCC, `ncc_heads`) and `final3`
-    (Ku novel) linear heads: the Stage-2 teacher/student model.
+    (Ku novel) heads: the Stage-1.5 and Stage-2 model. With `head="cosine"`
+    (the reference's `MinkUNetRCCosine`) `final` and `final2` are
+    `NormedLinear`; `final3` stays linear.
 
     Returns {'feats', 'logits_known', 'logits_ncc', 'logits_novel'}; the
     assemblers below build the reference's logit layouts. The heads sit
@@ -164,13 +179,13 @@ class MinkUNetRC(nn.Module):
     def __init__(self, num_labeled: int, num_novel: int, ncc_heads: int = 3,
                  arch: str = "MinkUNet34", planes: tuple = DEFAULT_PLANES,
                  in_channels: int = 1, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, head: str = "linear"):
         super().__init__()
         self.encoder = MinkUNetBackbone(arch, planes, in_channels, dtype=dtype,
                                         generator=generator)
         c = self.encoder.out_channels
-        self.encoder.final = Linear(c, num_labeled, generator=generator)
-        self.encoder.final2 = Linear(c, ncc_heads, generator=generator)
+        self.encoder.final = make_head(head, c, num_labeled, generator)
+        self.encoder.final2 = make_head(head, c, ncc_heads, generator)
         self.encoder.final3 = Linear(c, num_novel, generator=generator)
 
     def forward(self, plan, feats):

@@ -5,6 +5,7 @@ Port of `gcdlss_tpu/train/common.py`.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,6 +53,35 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(device)!r} was asked for (the default) but no CUDA device is "
             "available; pass device=\"cpu\" to run on the CPU")
     return device
+
+
+class StepClock:
+    """Times each step without waiting for the card: two CUDA events around a
+    step on the card, the host clock on the CPU (where a step has run to its
+    end when it returns). `ms()` reads the times once every event has passed,
+    i.e. after the epoch's one read of the device."""
+
+    def __init__(self, device: torch.device):
+        self.on_card = device.type == "cuda"
+        self.clocks: list = []
+
+    def start(self) -> None:
+        if self.on_card:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.on_card:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.clocks.append((self._start, end))
+        else:
+            self.clocks.append((time.perf_counter() - self._t0) * 1e3)
+
+    def ms(self) -> list:
+        return [c[0].elapsed_time(c[1]) if self.on_card else c for c in self.clocks]
 
 
 def voxel_batch_to_device(vb, device) -> dict:

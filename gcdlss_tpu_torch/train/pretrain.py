@@ -14,7 +14,6 @@ ignored by the loss.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,7 +23,7 @@ from ..eval.metrics import confusion_update, strict_hungarian_iou
 from ..losses import cross_entropy
 from ..models.minkunet import DEFAULT_PLANES, MinkUNetSeg
 from ..ops.plan import plan_capacity_overflow
-from .common import (TrainState, inv_label_lut, make_sgd, plan_and_gather,
+from .common import (StepClock, TrainState, inv_label_lut, make_sgd, plan_and_gather,
                      point_batch_to_device, resolve_device, voxel_batch_to_device)
 from .schedule import make_lr_schedule
 
@@ -39,6 +38,7 @@ class PretrainConfig:
     planes: tuple = DEFAULT_PLANES
     in_channels: int = 1
     dtype: str = "float32"  # activation dtype: "bfloat16" on the card
+    head: str = "linear"  # "cosine" = ExpCosinePretrain (`NormedLinear` head)
     lr: float = 1e-2
     momentum: float = 0.9
     weight_decay: float = 1e-4
@@ -52,7 +52,7 @@ class PretrainConfig:
 def make_model(cfg: PretrainConfig, generator: torch.Generator | None = None) -> MinkUNetSeg:
     return MinkUNetSeg(cfg.num_labeled_classes, arch=cfg.arch, planes=cfg.planes,
                        in_channels=cfg.in_channels, dtype=getattr(torch, cfg.dtype),
-                       generator=generator)
+                       generator=generator, head=cfg.head)
 
 
 def create_pretrain_state(seed: int, cfg: PretrainConfig, device="cuda") -> TrainState:
@@ -131,22 +131,13 @@ class ExpPretrain:
         self.step_log: list = []
 
     def train_epoch(self, loader) -> float:
-        on_card = self.device.type == "cuda"
-        losses, overflows, clocks = [], [], []
+        losses, overflows = [], []
+        clock = StepClock(self.device)
         for batch in loader:
-            if on_card:
-                start, end = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                start.record()
-            else:
-                t0 = time.perf_counter()
+            clock.start()
             vb = voxel_batch_to_device(batch["voxel"], self.device)
             self.state, metrics = pretrain_train_step(self.state, vb, self.cfg)
-            if on_card:
-                end.record()
-                clocks.append((start, end))
-            else:
-                clocks.append((time.perf_counter() - t0) * 1e3)
+            clock.stop()
             losses.append(metrics["loss"])
             overflows.append(metrics["plan_overflow"])
         if not losses:
@@ -155,8 +146,7 @@ class ExpPretrain:
         # every event has passed once it returns
         loss_v, overflow_v = torch.stack([torch.stack(losses).float(),
                                           torch.stack(overflows).float()]).cpu().numpy()
-        for loss, overflow, clock in zip(loss_v, overflow_v, clocks):
-            ms = clock[0].elapsed_time(clock[1]) if on_card else clock
+        for loss, overflow, ms in zip(loss_v, overflow_v, clock.ms()):
             self.step_log.append({"loss": float(loss), "plan_overflow": int(overflow),
                                   "step_ms": ms})
         return float(np.mean(loss_v, dtype=np.float64))

@@ -8,10 +8,11 @@ Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
     layouts ([K, Ci, Co], z-fastest offsets, `dcode` pool order), so only the
     names change (`_ref_name`: `conv1s2` -> `conv1p1s2`, `block1/block0` ->
     `block1.0`, `proj` -> `downsample.0`, BN `scale` -> `weight`; the heads
-    `final`, `final2`, `final3` -> `encoder.final*`).
+    `final`, `final2`, `final3` -> `encoder.final*`, linear (`kernel`,
+    `bias`) or cosine (`weight`)).
   * `load_jax_discover_state`: a whole JAX `DiscoverState` (student and
     teacher trees, tau, queue, step) -> a port `DiscoverState`.
-  * `warm_start`: the Stage-1 -> Stage-2 warm start from a port
+  * `warm_start`: the Stage-1 -> Stage-1.5 / Stage-2 warm start from a port
     `MinkUNetSeg` state dict.
   * `load_reference_state_dict`: a reference MinkowskiEngine checkpoint
     (`encoder.*.kernel`, `*.bn.weight`, ...) -> the port, permuting kernel
@@ -23,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.layers import Linear, SparseBatchNorm
+from ..models.layers import Linear, NormedLinear, SparseBatchNorm
 
 _BN = (("weight", "scale", "params"), ("bias", "bias", "params"),
        ("running_mean", "mean", "batch_stats"), ("running_var", "var", "batch_stats"))
@@ -139,10 +140,10 @@ def load_jax_discover_state(state, tree: dict) -> None:
 
 
 def warm_start(model: torch.nn.Module, pretrained: dict) -> list:
-    """Stage-1 -> Stage-2 warm start: copy the parameters of a port
-    `MinkUNetSeg` state dict (the backbone and `encoder.final`) into a
-    `MinkUNetRC`, as the JAX package's `create_discover_state` copies the
-    `encoder` and `final` trees. Batch-norm statistics and the heads the
+    """Stage-1 -> Stage-1.5 / Stage-2 warm start: copy the parameters of a
+    port `MinkUNetSeg` state dict (the backbone and `encoder.final`) into a
+    `MinkUNetRC`, as the JAX package's `create_finetune_state` and
+    `create_discover_state` copy the `encoder` and `final` trees. Batch-norm statistics and the heads the
     dict lacks (`final2`, `final3`) stay as they are. Returns the names of
     the parameters left as they were."""
     params = dict(model.named_parameters())
@@ -184,5 +185,7 @@ def load_reference_state_dict(model: torch.nn.Module, sd: dict, prefix: str = ""
                  lambda key: _conv_in({key: raw(key)}, key, shape, me_order))
             if isinstance(mod, Linear) and mod.bias is not None:
                 take(f"{name}.bias", f"{ref}.bias", raw)
+        elif isinstance(mod, NormedLinear):  # cosine head: `weight` [Ci, features]
+            take(f"{name}.weight", f"{ref}.weight", raw)
     model.load_state_dict(new, strict=False)
     return missing

@@ -1,6 +1,6 @@
 """The sparse-conv wrappers' CPU side after their kernels' redesign.
 
-(a) The port's four entry points default to the card: without a device
+(a) The port's entry points default to the card: without a device
     argument and without a CUDA device they raise; with `device="cpu"` they run.
 (b) The plain statements of what the CUDA kernels visit: K1 multiplies only
     the (16-row strip, offset) pairs of `strips_kept_plain`, dW only the pairs
@@ -23,6 +23,7 @@ from gcdlss_tpu.ops import conv as jconv
 from gcdlss_tpu_torch.ops import conv as tconv
 from gcdlss_tpu_torch.ops import fused_conv as tfused
 from gcdlss_tpu_torch.train import discover as td
+from gcdlss_tpu_torch.train import finetune as tft
 from gcdlss_tpu_torch.train import pretrain as tpt
 from gcdlss_tpu_torch.train.common import resolve_device
 from gcdlss_tpu_torch.train.modules import ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive
@@ -45,6 +46,11 @@ def _discover_cfg():
                              queue_slots=2, queue_per_slot=16)
 
 
+def _finetune_cfg():
+    return tft.FineTuneConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
+                              voxel_caps=CAPS, arch="MinkUNet14", planes=PLANES)
+
+
 MAPPING = {i: i for i in range(19)}
 ENTRY_POINTS = {
     "create_pretrain_state": lambda **kw: tpt.create_pretrain_state(0, _pretrain_cfg(), **kw),
@@ -52,6 +58,8 @@ ENTRY_POINTS = {
     "create_discover_state": lambda **kw: td.create_discover_state(0, _discover_cfg(), **kw),
     "ExpMergeDiscover": lambda **kw: ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(
         _discover_cfg(), MAPPING, MAPPING, seed=0, **kw),
+    "create_finetune_state": lambda **kw: tft.create_finetune_state(0, _finetune_cfg(), **kw),
+    "ExpFineTuning": lambda **kw: tft.ExpFineTuning(_finetune_cfg(), seed=0, **kw),
 }
 
 

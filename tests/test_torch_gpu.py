@@ -468,3 +468,54 @@ def test_plan_build_waits_for_no_host_sync(plan, stage):
     import chip_smoke
 
     chip_smoke.plan_sync_case(plan.stem_nbr.device, stage)
+
+
+def _finetune_sides(rng, cap, scans):
+    """Voxel batch dicts (numpy) of `scans` synthetic scans at capacity `cap`:
+    unique coordinates in plan order, features and labels from `rng`."""
+    pts = rng.integers(-20, 20, size=(2 * cap, 3))
+    b = rng.integers(0, scans, size=(2 * cap, 1))
+    c = np.unique(np.concatenate([b, pts], 1), axis=0)[: int(cap * 0.9)].astype(np.int32)
+    coords = np.zeros((cap, 4), np.int32)
+    coords[: len(c)] = c
+    labels = rng.integers(0, 18, cap).astype(np.int32)
+    return {"coords": coords, "feats": rng.uniform(0, 1, (cap, 1)).astype(np.float32),
+            "labels": labels, "mapped_labels": labels,
+            "valid": np.arange(cap) < len(c)}
+
+
+@pytest.mark.parametrize("extra", [False, True], ids=["plain", "extra"])
+def test_finetune_steps_match_the_cpu(extra):
+    """Two Stage-1.5 steps (pairs mixing; the Extra step with the entropy
+    terms and pseudo labels) on the card (kernels) and on the CPU (plain
+    versions) from the same weights with the same draws, bf16 activations on
+    both: each loss part within chip_smoke's card-vs-CPU tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import REF_TOL
+    from gcdlss_tpu_torch.train import finetune as tft
+
+    caps = (4096, 4096, 2048, 1024, 512)
+    cfg = tft.FineTuneConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
+                             voxel_caps=caps, arch="MinkUNet14",
+                             planes=(16, 16, 32, 32, 32, 16, 16, 16),
+                             dtype="bfloat16", mix_mode="pairs", entropy_minimize=extra,
+                             sup_voxel_cap=caps[0] // 2 if extra else 0, lr=0.05,
+                             use_scheduler=False)
+    rng = np.random.default_rng(9)
+    sides = ([_finetune_sides(rng, caps[0] // 2, 2), _finetune_sides(rng, caps[0] // 2, 2)]
+             if extra else [_finetune_sides(rng, caps[0], 2)])
+    step = tft.finetune_extra_train_step if extra else tft.finetune_train_step
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        state = tft.create_finetune_state(0, cfg, device=dev)
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in s.items()} for s in sides]
+        metrics[dev] = []
+        for i in range(2):
+            perms = tft.draw_step_randoms(cfg, 0, i, caps[0], "cpu")["perms"]
+            state, m = step(state, *batches, cfg, draws={"perms": [p.to(dev) for p in perms]})
+            metrics[dev].append({k: float(v) for k, v in m.items()})
+    for got, ref in zip(metrics["cuda"], metrics["cpu"]):
+        for k, r in ref.items():
+            assert np.isfinite(got[k]), k
+            assert abs(got[k] - r) <= REF_TOL * abs(r), (k, got[k], r)

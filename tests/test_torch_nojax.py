@@ -45,7 +45,9 @@ def test_port_imports_no_jax():
             "gcdlss_tpu_torch.data.semantic_kitti", "gcdlss_tpu_torch.data.nuscenes",
             "gcdlss_tpu_torch.data.native_voxelizer", "gcdlss_tpu_torch.utils.weights",
             "gcdlss_tpu_torch.ops.conv_parts", "gcdlss_tpu_torch.tools.conv_parts",
-            "gcdlss_tpu_torch.tools.stage2_split"} <= set(names)
+            "gcdlss_tpu_torch.tools.stage2_split", "gcdlss_tpu_torch.train.finetune",
+            "gcdlss_tpu_torch.train.feature_mixing", "gcdlss_tpu_torch.train.registry",
+            "gcdlss_tpu_torch.train.uncertainty", "gcdlss_tpu_torch.eval.sweep"} <= set(names)
     proc = _run("import importlib, sys\n"
                 f"for n in {names!r}: importlib.import_module(n)\n" + REPORT_FORBIDDEN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
