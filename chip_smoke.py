@@ -62,11 +62,30 @@ Phases, each of which raises on failure:
   7. Stage-2 slice: `ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive` at the
      `bench.py` Stage-2 configuration (MinkUNet34, bf16, 2 + 2 scans), 3
      steps with `plan_kernel=2` and 1 with `plan_kernel=1` through its own
-     loaders, then `validate` on 4 scans.
+     loaders, then `validate` on 4 scans;
+  8. remat: two Stage-1 steps of an f32 MinkUNet34 with `remat` off and on
+     from the same weights and batch: equal losses and states, each run's
+     peak memory and step times;
+  9. CLI: the port's CLI (`python -m gcdlss_tpu_torch.main`, called as
+     `main(argv)` in this process) as a user runs it, f32 (its only dtype),
+     on one synthetic tree of 80k-point scans at 0.05 m (`cli_runs`): (a)
+     Stage 1, MinkUNet34, 2 epochs with a checkpoint each and the handoff;
+     (b) the same resumed at epoch 2; (c) `ExpMixExtraFineTuning` and (d)
+     Stage 2 at the `bench.py` configuration, both warm-started from (a);
+     (e) `--test` on (d)'s saved state, whose mIoU must equal (d)'s last
+     validation; (f) Stage 1 at MinkUNet50. Every run: finite losses, no
+     plan (train or eval) dropping a voxel, K1 and K3 launched (K2 in every
+     training run), K4 not; step times, peak memory and the card printed.
+  Phase 2 also holds K1/K2 at MinkUNet50's pool-conv widths (downs 128,
+  256, 512 channels; ups 1,024 -> 256, 1,024 -> 128, 512 -> 96, 384 -> 96)
+  on the Stage-1 plan, and phase 4 runs the reference forward in bf16 and
+  in f32 (the f32 model's convs round x and W to bf16 on the card and keep
+  f32 sums). Each phase's wall time is printed.
 
 Each path (the tool's `main`, the Stage-1 slice, each run of the Stage-1.5
-slice, the Stage-2 slice) sets every kernel's launch count to 0 just before
-it and reads it just after: each kernel of its path must have launched.
+slice, the Stage-2 slice, each CLI run) sets every kernel's launch count to
+0 just before it and reads it just after: each kernel of its path must have
+launched.
 Every kernel row carries its bound, the least time the card could take for
 the same work: the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its
@@ -437,24 +456,16 @@ def kernel_phase(device) -> list:
         f"{[int(lv.valid.sum()) for lv in plan.levels]}")
 
     rows = cube_map_rows(plan, "stage1")
-    return rows + gemm_phase(plan, device, "stage1")
+    return (rows + gemm_phase(plan, device, "stage1")
+            + gemm_phase(plan, device, "stage1", mink50_pool_cases(plan)))
 
 
-def gemm_phase(plan, device, tag: str) -> list:
-    """K1/K2 at the path's convs of `plan` (stem, the k3 books of L0, L1, L3
-    and L4, a down and an up pool book), each against its plain version on
-    the same bf16-rounded inputs, timed beside it. Also held: K1's bf16
-    result equals its f32 result cast, and two runs of K2 give the same bits.
-    `strips_kept` is the share of (16-row strip, offset) pairs K1 visits and
-    `pairs` the present pairs dW visits, both by the plain rules."""
-    import torch
-
-    from gcdlss_tpu_torch.ops import conv as plain
-    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
-
-    rows = []
+def path_cases(plan) -> list:
+    """(name, x rows, forward book, adjoint book, Ci, Co) of MinkUNet34's
+    convs on `plan`: the stem, the k3 books of L0, L1, L3 and L4, a down and
+    an up pool book."""
     lv, pools = plan.levels, plan.pools
-    cases = [  # name, x rows, fwd book, adjoint book, ci, co
+    return [
         ("stem L0 k5 1->32", lv[0].valid, plan.stem_nbr, plan.stem_nbr.flip(1), 1, 32),
         ("L0 k3 128->96", lv[0].valid, lv[0].nbr3, lv[0].nbr3.flip(1), 128, 96),
         ("L1 k3 64->64", lv[1].valid, lv[1].nbr3, lv[1].nbr3.flip(1), 64, 64),
@@ -463,7 +474,37 @@ def gemm_phase(plan, device, tag: str) -> list:
         ("down L0->L1 32->32", lv[0].valid, pools[0].children, pools[0].upmap, 32, 32),
         ("up L4->L3 256->256", lv[4].valid, pools[3].upmap, pools[3].children, 256, 256),
     ]
-    for name, xvalid, nbr, adj, ci, co in cases:
+
+
+def mink50_pool_cases(plan) -> list:
+    """MinkUNet50's pool convs on `plan`, the widths no MinkUNet34 conv has:
+    the downs take 128, 256 and 512 channels (a bottleneck stage's 4x), the
+    ups 1,024, 1,024, 512 and 384 (`models.minkunet`, expansion 4)."""
+    lv, pools = plan.levels, plan.pools
+    cases = []
+    for i, (ci, co) in enumerate(((128, 128), (256, 256), (512, 512)), start=1):
+        cases.append((f"MinkUNet50 down L{i}->L{i + 1} {ci}->{co}", lv[i].valid,
+                      pools[i].children, pools[i].upmap, ci, co))
+    for lvl, (ci, co) in zip((3, 2, 1, 0), ((1024, 256), (1024, 128), (512, 96), (384, 96))):
+        cases.append((f"MinkUNet50 up L{lvl + 1}->L{lvl} {ci}->{co}", lv[lvl + 1].valid,
+                      pools[lvl].upmap, pools[lvl].children, ci, co))
+    return cases
+
+
+def gemm_phase(plan, device, tag: str, cases: list | None = None) -> list:
+    """K1/K2 at `cases` (default: the path's convs of `plan`, `path_cases`),
+    each against its plain version on the same bf16-rounded inputs, timed
+    beside it. Also held: K1's bf16 result equals its f32 result cast, and
+    two runs of K2 give the same bits. `strips_kept` is the share of (16-row
+    strip, offset) pairs K1 visits and `pairs` the present pairs dW visits,
+    both by the plain rules."""
+    import torch
+
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+
+    rows = []
+    for name, xvalid, nbr, adj, ci, co in cases or path_cases(plan):
         name = f"{tag} {name}"
         nbr, adj = nbr.contiguous(), adj.contiguous()
         k = nbr.shape[1]
@@ -661,9 +702,11 @@ def stage2_kernel_phase(device) -> list:
     return rows + cube_map_rows(plan, "stage2") + gemm_phase(plan, device, "stage2")
 
 
-def reference_phase(device) -> None:
+def reference_phase(device, dtype: str = "bfloat16") -> None:
     """MinkUNet34 forward on a small input: kernels on the card against the
-    plain versions on the CPU, same weights, bf16 activations on both."""
+    plain versions on the CPU, same weights, activations in `dtype` on both.
+    An f32 model's convs round x and W to bf16 on the card and keep f32
+    sums; on the CPU they are f32 throughout."""
     import copy
 
     import torch
@@ -682,7 +725,7 @@ def reference_phase(device) -> None:
     valid = np.arange(cap0) < len(vc)
     feats = rng.uniform(0, 1, (cap0, 1)).astype(np.float32) * valid[:, None]
     cfg = PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
-                         voxel_caps=default_caps(cap0), dtype="bfloat16")
+                         voxel_caps=default_caps(cap0), dtype=dtype)
     # eval-mode batch norm: with batch statistics, bf16 activations turn a
     # change of f32 summation order alone into ~3% relative change of these
     # logits (reversing the plain conv's offset loop on the CPU: 3.1e-2 in
@@ -698,13 +741,16 @@ def reference_phase(device) -> None:
     ref, got = outs["cpu"], outs[str(device)]
     err = float((got - ref).abs().max())
     rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
-    log(f"reference: MinkUNet34 logits on {len(vc)} voxels, card vs CPU "
+    log(f"reference: MinkUNet34 {dtype} logits on {len(vc)} voxels, card vs CPU "
         f"rel-Frobenius {rel:.3e}, max|d| {err:.3e} (max|ref| {float(ref.abs().max()):.3e})")
-    # both sides round every layer's output to bf16; a last-place flip where
-    # the f32 sums differ in order propagates through the 34 layers, so the
-    # bound is on the whole logit tensor, ~8x the order-flip spread above
+    # bf16: both sides round every layer's output to bf16; a last-place flip
+    # where the f32 sums differ in order propagates through the 34 layers, so
+    # the bound is on the whole logit tensor, ~8x the order-flip spread above.
+    # f32: the card's convs see bf16-rounded inputs (0.27% on the CPU's
+    # emulation of that rounding at this input)
     if not (torch.isfinite(got).all() and rel <= REF_TOL):
-        raise AssertionError(f"reference: card logits differ from the CPU's by {rel} (relative)")
+        raise AssertionError(f"reference {dtype}: card logits differ from the CPU's by {rel} "
+                             f"(relative)")
 
 
 def part_kernels() -> dict:
@@ -1070,6 +1116,202 @@ def stage2_phase(device, gpu_name: str) -> dict:
     return launches
 
 
+def remat_phase(device, card: str) -> dict:
+    """One Stage-1 step pair (two `pretrain_train_step`s) of an f32
+    MinkUNet34 with `remat` off and on, from the same weights and batch (2
+    synthetic scans at CAP0): both losses of the pair within 1e-5 relative,
+    every parameter and batch-norm statistic after it too; prints each
+    run's peak memory and each step's device time (two CUDA events). Returns
+    the peaks (GiB)."""
+    import torch
+
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.pretrain import (PretrainConfig, create_pretrain_state,
+                                                 pretrain_train_step)
+
+    coords, valid = voxel_batch(np.random.default_rng(9), device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    labels = torch.randint(0, 19, valid.shape, generator=gen, device=device, dtype=torch.int32)
+    mapped = torch.randint(0, 18, valid.shape, generator=gen, device=device, dtype=torch.int32)
+    batch = {"coords": coords, "valid": valid, "labels": labels,
+             "mapped_labels": torch.where(valid, mapped, -1),
+             "feats": torch.rand(valid.shape[0], 1, generator=gen, device=device) * valid[:, None]}
+    out = {}
+    for remat in (False, True):
+        cfg = PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
+                             voxel_caps=default_caps(CAP0), remat=remat, use_scheduler=False)
+        state = create_pretrain_state(0, cfg, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = pretrain_train_step(state, batch, cfg)[1]["loss"]
+            end.record()
+            losses.append(float(loss))
+            ms.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        out[remat] = dict(losses=losses, ms=ms, peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          sd={k: v.detach().clone() for k, v in
+                              state.model.state_dict().items()})
+        del state
+    off, on = out[False], out[True]
+    worst = max(float((on["sd"][k] - v).abs().max() / v.abs().max().clamp(min=1e-6))
+                for k, v in off["sd"].items())
+    log(f"remat: f32 MinkUNet34 step pair at cap0 {CAP0}: losses off {off['losses']} on "
+        f"{on['losses']}; worst relative state difference {worst:.3e}; peak memory off "
+        f"{off['peak']:.3f} GiB, on {on['peak']:.3f} GiB; device time a step off "
+        f"{[round(t, 1) for t in off['ms']]} ms, on {[round(t, 1) for t in on['ms']]} ms "
+        f"({card})")
+    for a, b in zip(off["losses"], on["losses"]):
+        if not (np.isfinite(a) and abs(a - b) <= 1e-5 * abs(a)):
+            raise AssertionError(f"remat: losses {off['losses']} (off) and {on['losses']} (on)")
+    if not worst <= 1e-5:
+        raise AssertionError(f"remat: the states after the pair differ by {worst} (relative)")
+    return {"off": off["peak"], "on": on["peak"]}
+
+
+CLI_TREE = (12, 2)  # train and valid scans: 6 labeled (split 1, 50%), 3 steps an epoch
+
+
+def cli_runs(root: Path) -> list:
+    """(tag, argv, what it must show) of the CLI phase: every run through
+    `python -m gcdlss_tpu_torch.main`'s `main(argv)`, f32 (the CLI's only
+    dtype), at 0.05 m voxels and 80k points a scan."""
+    ck, s1 = root / "ck", str(root / "ck" / "s1")
+    common = ["--dataset", "SemanticKITTI", "-s", "1", "--dataset_path", str(root / "kitti"),
+              "--voxel_size", str(VOXEL_SIZE), "--downsampling", str(POINTS_PER_SCAN),
+              "--num_workers", "2", "--checkpoint_dir", str(ck), "--log_dir",
+              str(root / "logs"), "--split_dir", str(root / "split"), "--device", "cuda"]
+    s1_args = ["--module", "ExpPretrain", "--arch", "MinkUNet34", "--batch_size", str(BATCH),
+               "--voxel_cap", str(CAP0), "--experiment", "s1"]
+    s2_args = ["--module", "ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive",
+               "--batch_size", str(2 * BATCH), "--voxel_cap", str(S2_CAP0), "--experiment", "s2"]
+    return [
+        ("a", common + s1_args + ["--epochs", "2"], "Stage 1, 2 epochs"),
+        ("b", common + s1_args + ["--epochs", "3", "--resume_checkpoint", "1"],
+         "Stage 1 resumed at epoch 2"),
+        ("c", common + ["--module", "ExpMixExtraFineTuning", "--pretrained", s1, "--batch_size",
+                        str(2 * BATCH), "--voxel_cap", str(S2_CAP0), "--experiment", "s15",
+                        "--epochs", "1"], "Stage 1.5 from the handoff"),
+        ("d", common + s2_args + ["--pretrained", s1, "--epochs", "1"],
+         "Stage 2 from the handoff"),
+        ("e", common + s2_args + ["--test", "--checkpoint", str(ck / "s2")],
+         "Stage 2 --test on (d)'s state"),
+        ("f", common + ["--module", "ExpPretrain", "--arch", "MinkUNet50", "--batch_size",
+                        str(BATCH), "--voxel_cap", str(CAP0), "--experiment", "s1m50",
+                        "--epochs", "1"], "Stage 1 at MinkUNet50"),
+    ]
+
+
+class PlanProbe:
+    """Inside, every plan the training and evaluation steps build (the
+    `build_unet_plan` of `train.common.plan_and_gather` and of Stage 2's
+    mixed plan) has its capacity overflow kept, on the device, for `read`."""
+
+    def __enter__(self):
+        from gcdlss_tpu_torch.ops.plan import plan_capacity_overflow
+        from gcdlss_tpu_torch.train import common, discover
+
+        self.mods, self.counts = (common, discover), []
+        self.orig = common.build_unet_plan
+
+        def probe(*args, **kw):
+            plan = self.orig(*args, **kw)
+            self.counts.append(plan_capacity_overflow(plan))
+            return plan
+
+        for mod in self.mods:
+            mod.build_unet_plan = probe
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.build_unet_plan = self.orig
+
+    def read(self) -> tuple:
+        """(plans built, voxels they dropped) since the last read."""
+        import torch
+
+        counts, self.counts = self.counts, []
+        return len(counts), int(torch.stack(counts).sum()) if counts else 0
+
+
+def cli_phase(device, card: str) -> dict:
+    """The port's CLI as a user runs it (`cli_runs`): on one synthetic
+    SemanticKITTI tree, Stage 1 with a checkpoint an epoch and its handoff,
+    a resume, Stage 1.5 and Stage 2 warm-started from it, `--test` on Stage
+    2's saved state, and Stage 1 at MinkUNet50. Each run: finite losses, no
+    plan dropping a voxel, K1 and K3 launched (K2 in every training run), K4
+    not. Returns the launches per run and in all."""
+    import torch
+
+    from gcdlss_tpu_torch import main as cli
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map, **{k: v for k, v in part_kernels().items()
+                                             if k != "K1"}}
+    launches, records = {}, {}
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp, PlanProbe() as probe:
+        root = Path(tmp)
+        write_kitti_tree(root / "kitti", np.random.default_rng(8), *CLI_TREE)
+        for tag, argv, what in cli_runs(root):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kernels.values():
+                fn.launches = 0
+            rec = records[tag] = cli.main(argv)
+            torch.cuda.synchronize()
+            launches[tag] = {name: fn.launches for name, fn in kernels.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            plans, dropped = probe.read()
+            module = rec["module"]
+            steps = getattr(module, "step_log", [])
+            for i, st in enumerate(steps):
+                ms = st["step_ms"] if "step_ms" in st else st["seconds"] * 1e3
+                clock = "device time" if "step_ms" in st else "host time"
+                log(f"cli ({tag}) step {i}: loss {st['loss']:.6f} | {clock} {ms:.1f} ms ({card})")
+            for h in rec["history"]:
+                log(f"cli ({tag}) epoch {h['epoch']}: " + " ".join(
+                    f"{k} {v:.6f}" for k, v in h.items()
+                    if k in ("train/loss", "valid/mIoU", "valid/mIoU_old", "valid/mIoU_new")))
+            log(f"cli ({tag}) {what}: {len(steps)} steps, start epoch {rec['start_epoch']}, "
+                f"{plans} plans dropped {dropped} voxels; peak memory {peak:.3f} GiB ({card}); "
+                f"wall {time.perf_counter() - t0:.1f} s; launches {launches[tag]}")
+            train = tag != "e"
+            bad = [(i, k) for i, st in enumerate(steps) for k, v in st.items()
+                   if isinstance(v, float) and not np.isfinite(v)]
+            if train and (not steps or bad):
+                raise AssertionError(f"cli ({tag}): {len(steps)} steps, non-finite {bad}")
+            if dropped or not plans:
+                raise AssertionError(f"cli ({tag}): {plans} plans dropped {dropped} voxels")
+            need = ("K1", "K2", "K3") if train else ("K1", "K3")
+            if not all(launches[tag][k] > 0 for k in need) or launches[tag]["K4"]:
+                raise AssertionError(f"cli ({tag}): launches {launches[tag]}, need {need}, no K4")
+        ck = root / "ck"
+        saved = {run: sorted(p.name for p in (ck / run).iterdir()) for run in ("s1", "s2")}
+    log(f"cli: saved {saved}")
+    if saved["s1"] != ["0", "1", "2", "pretrained"]:
+        raise AssertionError(f"cli: Stage 1 saved {saved['s1']}, expected epochs 0-2 + pretrained")
+    if [h["epoch"] for h in records["a"]["history"]] != [0, 1] or \
+            [h["epoch"] for h in records["b"]["history"]] != [2]:
+        raise AssertionError("cli: (a) must run epochs 0, 1 and (b) epoch 2 alone")
+    log(f"cli (d): has_novel {[st['has_novel'] for st in records['d']['module'].step_log]}, "
+        f"n_cand {[st['n_cand'] for st in records['d']['module'].step_log]}")
+    last, tested = records["d"]["history"][-1]["valid/mIoU"], records["e"]["result"]["mIoU"]
+    log(f"cli: (d)'s last validate mIoU {last!r}, (e)'s --test mIoU {tested!r}")
+    if tested != last:
+        raise AssertionError(f"cli: --test on (d)'s state gives mIoU {tested}, (d) gave {last}")
+    launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1094,21 +1336,37 @@ def main() -> int:
     _build.library()
     log(f"build: {lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
 
-    rates_phase(device)
-    rows = kernel_phase(device) + stage2_kernel_phase(device)
-    adversarial_phase(device)
-    cube_map_adversarial_phase(device)
-    cube_candidates_adversarial_phase(device)
-    reference_phase(device)
-    plan_sync_phase(device)
-    part_rows, launches_parts = conv_parts_phase(device, card)
-    launches_s1, s1_weights = stage1_phase(device, gpu_name)
-    launches_s15 = stage15_phase(device, card, s1_weights)
-    launches_s2 = stage2_phase(device, gpu_name)
+    wall = {}
+
+    def phase(name: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = time.perf_counter() - t
+        log(f"phase {name}: {wall[name]:.1f} s wall")
+        return out
+
+    phase("rates", rates_phase, device)
+    rows = phase("kernels", kernel_phase, device) + phase("stage2 kernels", stage2_kernel_phase,
+                                                          device)
+    phase("adversarial", adversarial_phase, device)
+    phase("K3 adversarial", cube_map_adversarial_phase, device)
+    phase("K4 adversarial", cube_candidates_adversarial_phase, device)
+    phase("reference bf16", reference_phase, device, "bfloat16")
+    phase("reference f32", reference_phase, device, "float32")
+    phase("plan sync", plan_sync_phase, device)
+    part_rows, launches_parts = phase("conv parts", conv_parts_phase, device, card)
+    launches_s1, s1_weights = phase("stage1", stage1_phase, device, gpu_name)
+    launches_s15 = phase("stage1.5", stage15_phase, device, card, s1_weights)
+    launches_s2 = phase("stage2", stage2_phase, device, gpu_name)
+    peaks_remat = phase("remat", remat_phase, device, card)
+    launches_cli = phase("cli", cli_phase, device, card)
+    log(f"phases (wall s): {json.dumps({k: round(v, 1) for k, v in wall.items()})}; "
+        f"remat peaks (GiB) {peaks_remat}")
     # `launches`: K1-K4 on the Stage-2 path (the training path that runs all
     # four; `launches_stage1` the Stage-1 path, `launches_stage15` the
-    # Stage-1.5 phase), P1-P4 in the tool's main run (their only path; K1's
-    # launches there are `launches_parts`)
+    # Stage-1.5 phase, `launches_cli` the CLI's six runs together), P1-P4 in
+    # the tool's main run (their only path; K1's launches there are
+    # `launches_parts`)
     for r in rows:
         r["launches"] = launches_s2[r["name"][:2]]
         r["launches_stage1"] = launches_s1[r["name"][:2]]
@@ -1118,9 +1376,12 @@ def main() -> int:
     for r in part_rows:
         r["launches"] = launches_parts[r["name"][:2]]
     rows += part_rows
+    for r in rows:
+        r["launches_cli"] = launches_cli["total"][r["name"][:2]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_stage1", "launches_stage15", "launches_parts", "bound_measured_ms",
+    extra = ("launches_stage1", "launches_stage15", "launches_cli", "launches_parts",
+             "bound_measured_ms",
              "bound_dense_ms", "fill",
              "far_entries",
              "strips_kept", "pairs", "dw_only_ms", "ranks_plus_kernel_ms", "k3_ms")

@@ -114,6 +114,7 @@ class PrefetchLoader:
         seed: int = 0,
         drop_last: bool = True,
         per_scan_seed: bool = True,
+        epoch: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -127,7 +128,9 @@ class PrefetchLoader:
         if per_scan_seed:
             _check_per_scan(dataset)
         self.per_scan_seed = per_scan_seed
-        self.epoch = 0  # passes started so far; part of each scan's seed
+        # the pass the next iteration is (part of each scan's seed): `epoch`
+        # to begin with, one more for each pass started
+        self.epoch = epoch
 
     def __len__(self):
         n = len(self.dataset)
@@ -179,6 +182,7 @@ class MultiprocessLoader:
         drop_last: bool = True,
         mp_context: str = "spawn",
         per_scan_seed: bool = True,
+        epoch: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -193,7 +197,7 @@ class MultiprocessLoader:
         if per_scan_seed:
             _check_per_scan(dataset)
         self.per_scan_seed = per_scan_seed
-        self.epoch = 0
+        self.epoch = epoch
 
     def __len__(self):
         n = len(self.dataset)

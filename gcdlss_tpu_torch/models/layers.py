@@ -10,6 +10,7 @@ Parameter names follow the reference checkpoint (`kernel` for convs,
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -71,6 +72,24 @@ class SparseUpConv(nn.Module):
                          out_valid)
 
 
+_FROZEN_STATS = 0  # > 0: batch norm leaves its running statistics as they are
+
+
+@contextlib.contextmanager
+def frozen_batch_norm_stats():
+    """Inside, a train-mode `SparseBatchNorm` normalizes with the batch's
+    statistics but does not update its running ones: the recompute of a
+    checkpointed block (`models.minkunet.ResLayer`, `remat`) must not count
+    the batch twice. A process-wide count, not a thread's: the backward pass
+    that recomputes may run on another thread than the forward."""
+    global _FROZEN_STATS
+    _FROZEN_STATS += 1
+    try:
+        yield
+    finally:
+        _FROZEN_STATS -= 1
+
+
 class SparseBatchNorm(nn.Module):
     """Batch norm over valid voxels (torch semantics: momentum 0.1, eps 1e-5).
 
@@ -90,10 +109,11 @@ class SparseBatchNorm(nn.Module):
     def forward(self, x, valid):
         if self.training:
             mean, var, cnt = masked_batch_norm_stats(x.float(), valid)
-            with torch.no_grad():
-                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+            if not _FROZEN_STATS:
+                with torch.no_grad():
+                    unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.eps) * self.weight

@@ -30,6 +30,10 @@ CPU. For CUDA tensors it checks device, dtype (bf16 activations and weights,
 int32 books), shape and contiguity, allocates the outputs, launches on the
 current stream and raises on a non-zero CUDA error; there is no fallback.
 Each keeps a plain integer launch count (`gather_gemm.launches`).
+
+The autograd Functions (`SubmConvFn`, `PoolConvFn`) serve bf16 and f32
+models: an f32 caller on the card has x, W and the cotangent rounded to bf16
+on the way in, and gets f32 sums back (`_kernel_operands`).
 """
 
 from __future__ import annotations
@@ -144,23 +148,37 @@ def gather_gemm_backward(x: torch.Tensor, g: torch.Tensor, adj: torch.Tensor, w:
 gather_gemm_backward.launches = 0
 
 
+def _kernel_operands(x: torch.Tensor, w: torch.Tensor):
+    """(x, w, result dtype) as the convs hand them to K1/K2. bf16 activations
+    keep bf16 results. An f32 caller on the card has x and W rounded to bf16
+    and keeps the f32 sums, as the JAX package's fused conv rounds its inputs
+    outside the kernel and returns the caller's dtype
+    (`gcdlss_tpu/ops/fused_conv.py:480-481,773-775,867-868`). On the CPU the
+    plain versions run in x's dtype throughout. Any other dtype on the card
+    reaches the kernels' checks, which raise."""
+    if x.dtype == torch.float32 and x.device.type == "cuda":
+        return x.to(torch.bfloat16), w.to(torch.bfloat16), torch.float32
+    return x, w.to(x.dtype), _out_dtype(x)
+
+
 class SubmConvFn(torch.autograd.Function):
     """Submanifold conv; the adjoint book is the column-reversed `nbr`, read
     in place (`reverse=True`)."""
 
     @staticmethod
     def forward(ctx, x, nbr, w):
-        x = x.contiguous()
-        ctx.save_for_backward(x, nbr, w)
-        return gather_gemm(x, nbr, w.to(x.dtype), out_dtype=_out_dtype(x))
+        xk, wk, out_dtype = _kernel_operands(x.contiguous(), w)
+        ctx.save_for_backward(xk, nbr, wk)
+        ctx.out_dtype, ctx.w_dtype = out_dtype, w.dtype
+        return gather_gemm(xk, nbr, wk, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x, nbr, w = ctx.saved_tensors
-        dx, dw = gather_gemm_backward(x, g.to(x.dtype).contiguous(), nbr, w.to(x.dtype),
-                                      out_dtype=_out_dtype(x), reverse=True,
+        xk, nbr, wk = ctx.saved_tensors
+        dx, dw = gather_gemm_backward(xk, g.to(xk.dtype).contiguous(), nbr, wk,
+                                      out_dtype=ctx.out_dtype, reverse=True,
                                       need_dx=ctx.needs_input_grad[0])
-        return dx, None, dw.to(w.dtype)
+        return dx, None, dw.to(ctx.w_dtype)
 
 
 class PoolConvFn(torch.autograd.Function):
@@ -169,17 +187,18 @@ class PoolConvFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, nbr_fwd, nbr_adj, w):
-        x = x.contiguous()
-        ctx.save_for_backward(x, nbr_adj, w)
-        return gather_gemm(x, nbr_fwd, w.to(x.dtype), out_dtype=_out_dtype(x))
+        xk, wk, out_dtype = _kernel_operands(x.contiguous(), w)
+        ctx.save_for_backward(xk, nbr_adj, wk)
+        ctx.out_dtype, ctx.w_dtype = out_dtype, w.dtype
+        return gather_gemm(xk, nbr_fwd, wk, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x, nbr_adj, w = ctx.saved_tensors
-        dx, dw = gather_gemm_backward(x, g.to(x.dtype).contiguous(), nbr_adj, w.to(x.dtype),
-                                      out_dtype=_out_dtype(x),
+        xk, nbr_adj, wk = ctx.saved_tensors
+        dx, dw = gather_gemm_backward(xk, g.to(xk.dtype).contiguous(), nbr_adj, wk,
+                                      out_dtype=ctx.out_dtype,
                                       need_dx=ctx.needs_input_grad[0])
-        return dx, None, None, dw.to(w.dtype)
+        return dx, None, None, dw.to(ctx.w_dtype)
 
 
 def _out_dtype(x: torch.Tensor) -> torch.dtype:

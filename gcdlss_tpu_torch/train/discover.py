@@ -37,15 +37,14 @@ from .common import make_sgd, plan_and_gather, resolve_device
 from .lasermix import NUM_AREAS_CHOICES, lasermix_voxel_groups
 from .schedule import make_lr_schedule
 
-_FAMILY = "ROADMAP Queue 1, the discovery family"
+_FAMILY = "ROADMAP Queue 1 item 6, evaluation and the discovery family"
 # field -> (the ported value, the ROADMAP item that will port the others)
 _PORTED = {
     "threshold_mode": ("adaptive_logit", _FAMILY),
     "assigner": ("kmeans_hungarian", _FAMILY),
     "mix_mode": ("lasermix", _FAMILY),
-    "mix_plan_mode": ("voxel", "ROADMAP Queue 1, the point-mode LaserMix oracle"),
+    "mix_plan_mode": ("voxel", "ROADMAP Queue 1 item 4, the point-mode LaserMix oracle"),
     "use_lion": (False, _FAMILY),
-    "remat": (False, "ROADMAP Queue 1, models: remat"),
 }
 
 
@@ -107,6 +106,21 @@ class DiscoverConfig:
     plan_kernel: int = 2  # k^3 maps: 2 = K3 (a search per row and column), 1 = K4 (ranks)
 
 
+def make_discover_config(dataset: str, **kw) -> dict:
+    """Per-dataset coefficient defaults (`exp_merge_mean_teacher.py:1454-1488,
+    2744-2748`), under the keyword overrides: a copy of the JAX package's
+    `make_discover_config`."""
+    if dataset == "nuScenes":
+        base = dict(calib_coeff=0.1, threshold_loss_weight=0.5)
+    else:
+        base = dict(calib_coeff=0.05, threshold_loss_weight=0.2)
+    base.update(kw)
+    if base.get("arch") == "Cylinder3D":
+        # queue width must match the backbone feature dim (4 x base_channels)
+        base.setdefault("feat_dim", 128)
+    return base
+
+
 def check_config(cfg: DiscoverConfig) -> None:
     """Raise for a variant the port does not run yet, naming its ROADMAP item."""
     for field, (ported, item) in _PORTED.items():
@@ -133,7 +147,7 @@ def make_model(cfg: DiscoverConfig, generator: torch.Generator | None = None) ->
     check_config(cfg)
     return MinkUNetRC(cfg.num_labeled_classes, cfg.num_unlabeled_classes, cfg.ncc_heads,
                       arch=cfg.arch, planes=cfg.planes, in_channels=cfg.in_channels,
-                      dtype=getattr(torch, cfg.dtype), generator=generator)
+                      dtype=getattr(torch, cfg.dtype), generator=generator, remat=cfg.remat)
 
 
 def create_discover_state(seed: int, cfg: DiscoverConfig, pretrained: dict | None = None,

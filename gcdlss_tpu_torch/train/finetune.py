@@ -17,8 +17,7 @@ Rebuilds of the reference finetune classes (`modules/exp.py`):
 All are config switches on two steps (`finetune_train_step`,
 `finetune_extra_train_step`); `train/registry.py` maps the names. The k^3
 maps of every plan go through K3. Not ported yet: `extra_mode="cluster"`
-(ExpClusterFineTuning) and `remat` (`check_config` names their ROADMAP
-items).
+(ExpClusterFineTuning; `check_config` names its ROADMAP item).
 
 Each step draws its permutations from a generator seeded by (1234, step)
 (the Extra step: (4321, step)), as the JAX package folds the step into a
@@ -45,7 +44,6 @@ from .schedule import make_lr_schedule
 PLAIN_SEED, EXTRA_SEED = 1234, 4321
 # field -> (the ported values, the ROADMAP item that will port the others)
 _PORTED = {
-    "remat": ((False,), "ROADMAP Queue 1 item 4, models: remat"),
     "extra_mode": (("threshold", "rc_oracle"),
                    "ROADMAP Queue 1 item 6, evaluation and the discovery family: "
                    "algo/dbscan.py and the host k-means"),
@@ -118,7 +116,8 @@ def make_model(cfg: FineTuneConfig, generator: torch.Generator | None = None) ->
     check_config(cfg)
     return MinkUNetRC(cfg.num_labeled_classes, 1, cfg.ncc_heads, arch=cfg.arch,
                       planes=cfg.planes, in_channels=cfg.in_channels,
-                      dtype=getattr(torch, cfg.dtype), generator=generator, head=cfg.head)
+                      dtype=getattr(torch, cfg.dtype), generator=generator, head=cfg.head,
+                      remat=cfg.remat)
 
 
 def create_finetune_state(seed: int, cfg: FineTuneConfig, pretrained: dict | None = None,
@@ -365,24 +364,25 @@ class ExpFineTuning:
         return self.cfg.sup_voxel_cap > 0
 
     def make_loaders(self, lab_dataset, unlab_dataset=None, batch_size: int = 2,
-                     num_workers: int = 4, epoch: int = 0) -> tuple:
+                     num_workers: int = 4, epoch: int = 0, backend: str = "thread") -> tuple:
         """Epoch `epoch`'s loaders as `main.py:407-423` builds them: `batch_size`
         scans at `voxel_caps[0]` for the plain step; for the Extra step
         `num_sup_scans` labeled scans at `sup_voxel_cap` and as many unlabeled
-        ones at the rest of `voxel_caps[0]`."""
-        from ..data import PrefetchLoader
+        ones at the rest of `voxel_caps[0]`. Shuffled by `epoch` (the
+        unlabeled side by 1000 + `epoch`), each scan's augmentation drawn
+        from (dataset seed, `epoch`, scan); `backend` as `data.make_loader`."""
+        from ..data import make_loader
 
         cfg = self.cfg
+        kw = dict(backend=backend, num_workers=num_workers, epoch=epoch)
         if not self.extra:
-            return (PrefetchLoader(lab_dataset, batch_size, cfg.voxel_caps[0],
-                                   num_workers=num_workers, seed=epoch),)
+            return (make_loader(lab_dataset, batch_size, cfg.voxel_caps[0], seed=epoch, **kw),)
         if unlab_dataset is None:
             raise ValueError("the Extra step needs an unlabeled dataset")
-        return (PrefetchLoader(lab_dataset, cfg.num_sup_scans, cfg.sup_voxel_cap,
-                               num_workers=num_workers, seed=epoch),
-                PrefetchLoader(unlab_dataset, cfg.num_sup_scans,
-                               cfg.voxel_caps[0] - cfg.sup_voxel_cap,
-                               num_workers=num_workers, seed=1000 + epoch))
+        return (make_loader(lab_dataset, cfg.num_sup_scans, cfg.sup_voxel_cap, seed=epoch,
+                            **kw),
+                make_loader(unlab_dataset, cfg.num_sup_scans,
+                            cfg.voxel_caps[0] - cfg.sup_voxel_cap, seed=1000 + epoch, **kw))
 
     def train_epoch(self, loader, unlab_loader=None) -> dict:
         """One pass; returns the mean of each metric over its steps."""

@@ -38,6 +38,7 @@ class PretrainConfig:
     planes: tuple = DEFAULT_PLANES
     in_channels: int = 1
     dtype: str = "float32"  # activation dtype: "bfloat16" on the card
+    remat: bool = False  # recompute each residual block's forward in backward
     head: str = "linear"  # "cosine" = ExpCosinePretrain (`NormedLinear` head)
     lr: float = 1e-2
     momentum: float = 0.9
@@ -52,7 +53,7 @@ class PretrainConfig:
 def make_model(cfg: PretrainConfig, generator: torch.Generator | None = None) -> MinkUNetSeg:
     return MinkUNetSeg(cfg.num_labeled_classes, arch=cfg.arch, planes=cfg.planes,
                        in_channels=cfg.in_channels, dtype=getattr(torch, cfg.dtype),
-                       generator=generator, head=cfg.head)
+                       generator=generator, head=cfg.head, remat=cfg.remat)
 
 
 def create_pretrain_state(seed: int, cfg: PretrainConfig, device="cuda") -> TrainState:

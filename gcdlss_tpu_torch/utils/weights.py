@@ -5,11 +5,13 @@ Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
 
   * `load_jax_params`: the JAX package's `params` / `batch_stats` trees (nested
     dicts of numpy arrays) -> the port's modules. Both keep the same kernel
-    layouts ([K, Ci, Co], z-fastest offsets, `dcode` pool order), so only the
-    names change (`_ref_name`: `conv1s2` -> `conv1p1s2`, `block1/block0` ->
-    `block1.0`, `proj` -> `downsample.0`, BN `scale` -> `weight`; the heads
-    `final`, `final2`, `final3` -> `encoder.final*`, linear (`kernel`,
-    `bias`) or cosine (`weight`)).
+    layouts ([K, Ci, Co] sparse kernels, [Ci, Co] dense ones, z-fastest
+    offsets, `dcode` pool order), so only the names change (`_ref_name`:
+    `conv1s2` -> `conv1p1s2`, `block1/block0` -> `block1.0`, `proj` ->
+    `downsample.0`, BN `scale` -> `weight`; a bottleneck's `conv1` / `conv3`
+    dense and `conv2` sparse kernels keep their names; the heads `final`,
+    `final2`, `final3` -> `encoder.final*`, linear (`kernel`, `bias`) or
+    cosine (`weight`)). `state_dict_to_jax` is the way back.
   * `load_jax_discover_state`: a whole JAX `DiscoverState` (student and
     teacher trees, tau, queue, step) -> a port `DiscoverState`.
   * `warm_start`: the Stage-1 -> Stage-1.5 / Stage-2 warm start from a port
@@ -20,6 +22,8 @@ Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -112,6 +116,53 @@ def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
         if head in params:
             module(f"encoder.{head}", params[head], None)
     return out
+
+
+def _jax_name(name: str) -> str:
+    """Our encoder module name -> the JAX package's (`_ref_name` reversed)."""
+    if name.startswith("conv") and name.endswith("s2"):
+        return re.sub(r"p\d+s2$", "s2", name)
+    return name
+
+
+_PROJ = {"downsample.0": "proj", "downsample.1": "proj_norm"}
+
+
+def state_dict_to_jax(sd: dict) -> tuple:
+    """A port `MinkUNetSeg` / `MinkUNetRC` state dict (tensors or arrays) ->
+    the JAX package's (`params`, `batch_stats`) trees of numpy arrays, the
+    inverse of `jax_to_state_dict`."""
+    groups: dict = {}
+    for key, v in sd.items():
+        path, field = key.rsplit(".", 1)
+        groups.setdefault(path, {})[field] = np.asarray(
+            v.detach().cpu() if hasattr(v, "detach") else v)
+    params: dict = {}
+    stats: dict = {}
+
+    def node(tree: dict, keys: list) -> dict:
+        for k in keys:
+            tree = tree.setdefault(k, {})
+        return tree
+
+    for path, fields in groups.items():
+        parts = path.split(".")
+        if parts[0] != "encoder":
+            raise KeyError(f"unmapped state-dict key {path}")
+        name = parts[1]
+        if name.startswith("final"):
+            keys = [name]
+        elif name.startswith("block"):
+            sub = ".".join(parts[3:])
+            keys = ["encoder", name, f"block{parts[2]}", _PROJ.get(sub, sub)]
+        else:
+            keys = ["encoder", _jax_name(name)]
+        if "running_mean" in fields:  # batch norm
+            for ours, theirs, tree in _BN:
+                node(params if tree == "params" else stats, keys)[theirs] = fields[ours]
+        else:
+            node(params, keys).update(fields)
+    return params, stats
 
 
 def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:

@@ -33,6 +33,18 @@ PLANES = (8, 8, 8, 8, 8, 8, 8, 8)
 TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs on one CPU thread while this module's tests run:
+    the suite runs several workers at once, and each worker's default pool
+    of one thread a core oversubscribes the cores. The pool's size is
+    restored when the module's tests end."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pretrain_cfg():
     return tpt.PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
                               voxel_caps=CAPS, arch="MinkUNet14", planes=PLANES)

@@ -58,6 +58,18 @@ LOSS_KEYS = ("loss", "sup_seg", "mse", "lasermix", "calib", "thr_loss", "novel_u
 COUNT_KEYS = ("n_cand", "n_rel", "has_novel", "plan_overflow", "cand_overflow")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs on one CPU thread while this module's tests run:
+    the suite runs several workers at once, and each worker's default pool
+    of one thread a core oversubscribes the cores. The pool's size is
+    restored when the module's tests end."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
 
@@ -200,10 +212,11 @@ def test_variants_not_ported_raise():
                 unknown_label=17, voxel_caps=CAPS, sup_voxel_cap=SUP_CAP, mix_voxel_caps=CAPS,
                 num_sup_scans=2, point_cap=POINT_CAP)
     for kw in (dict(threshold_mode="fixed_prob"), dict(assigner="sinkhorn"),
-               dict(mix_mode="feature"), dict(mix_plan_mode="point"), dict(use_lion=True),
-               dict(remat=True)):
+               dict(mix_mode="feature"), dict(mix_plan_mode="point"), dict(use_lion=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             td.make_model(td.DiscoverConfig(**base, **kw))
+    # remat is ported: the model builds with its blocks recomputed in backward
+    assert td.make_model(td.DiscoverConfig(**base, remat=True)).encoder.block1.remat
     for bad in (0, 3):
         with pytest.raises(ValueError):
             td.check_config(td.DiscoverConfig(**base, plan_kernel=bad))

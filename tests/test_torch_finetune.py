@@ -676,9 +676,10 @@ def test_refusals_name_their_roadmap_item():
     tcfg, _ = _cfgs("ExpClusterFineTuning")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         tft.make_model(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        tft.create_finetune_state(0, dataclasses.replace(tcfg, extra_mode="threshold",
-                                                         remat=True), device="cpu")
+    # remat is ported: the state builds with its blocks recomputed in backward
+    assert tft.create_finetune_state(0, dataclasses.replace(tcfg, extra_mode="threshold",
+                                                            remat=True),
+                                     device="cpu").model.encoder.block1.remat
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         tsweep.threshold_sweep_test(None, None, tcfg, {}, [0], [17], subdivide=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):

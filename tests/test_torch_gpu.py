@@ -160,14 +160,30 @@ def test_cube_map_matches_join(plan, lvl, k1):
     assert torch.equal(cube_neighbor_map(kh, kl, k1), join_neighbor_map(kh, kl, k1))
 
 
-@pytest.mark.parametrize("k1", [3, 5, 7])
-@pytest.mark.parametrize("name", sorted(neighbor_map_levels()))
-def test_cube_map_matches_join_on_adversarial_levels(plan, name, k1):
+def _for_each(cases, check) -> None:
+    """`check(*case)` for every case, the failing case named. (The card-only
+    case lists run as loops inside one test each: parametrized, they would
+    add ~70 items that skip on the CPU, and the CPU suite's collected count
+    decides which tests share a worker there; ROADMAP, "Test budget".)"""
+    for case in cases:
+        try:
+            check(*case)
+        except AssertionError as exc:
+            raise AssertionError(f"case {case}: {exc}") from exc
+
+
+def test_cube_map_matches_join_on_adversarial_levels(plan):
     """Voxels on the faces and corners of the coordinate field (where the
     join path's clip folds queries and its scatter-max picks the largest
     row), no voxel, one voxel, a full cube, long z runs, four equal batches,
-    a level cut at its capacity; caps that are no multiple of a block's rows.
-    Bit for bit, the same bits on every launch, one launch counted."""
+    a level cut at its capacity; caps that are no multiple of a block's rows;
+    k1 = 3, 5, 7. Bit for bit, the same bits on every launch, one launch
+    counted."""
+    _for_each([(plan, name, k1) for name in sorted(neighbor_map_levels()) for k1 in (3, 5, 7)],
+              _check_cube_map_level)
+
+
+def _check_cube_map_level(plan, name: str, k1: int) -> None:
     from gcdlss_tpu_torch.ops.coords import encode_coords, sorted_unique
 
     coords, cap = neighbor_map_levels()[name]
@@ -225,15 +241,15 @@ def test_cube_candidates_matches_plain_and_k3(plan, lvl, k1):
     assert torch.equal(got, cube_neighbor_map(kh, kl, k1))
 
 
-@pytest.mark.parametrize("k1", [3, 5])
-@pytest.mark.parametrize("name", sorted(neighbor_map_levels()))
-def test_cube_candidates_on_adversarial_levels(plan, name, k1):
-    """K4 on the levels no scan makes (caps no multiple of a tile's rows):
-    bit for bit against its plain version, the same bits on every launch,
-    one launch counted, and equal to K3 off the field's faces."""
+def test_cube_candidates_on_adversarial_levels(plan):
+    """K4 on the levels no scan makes (caps no multiple of a tile's rows),
+    k1 = 3, 5: bit for bit against its plain version, the same bits on every
+    launch, one launch counted, and equal to K3 off the field's faces."""
     import chip_smoke
 
-    chip_smoke.check_cube_candidates_level(plan.stem_nbr.device, name, k1)
+    dev = plan.stem_nbr.device
+    _for_each([(dev, name, k1) for name in sorted(neighbor_map_levels()) for k1 in (3, 5)],
+              chip_smoke.check_cube_candidates_level)
 
 
 def test_plan_kernel_1_builds_the_same_plan(plan):
@@ -333,16 +349,16 @@ def test_window_sum_unaligned_starts(parts):
             torch.testing.assert_close(got, ref, rtol=0, atol=tol["P1"] * float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("n,c,window,nb,kind", WINDOW_SUM_CASES)
-def test_window_sum_adversarial(plan, n, c, window, nb, kind):
-    """P1 with NB no multiple of a cluster's 8 windows, equal starts, starts
-    at 0 and N - W, unaligned starts, W = 32, N = W, C 8 .. 256, N no
-    multiple of 128 or 8, random starts at W 6144: every layout that holds
-    the case, 1 and 2 buffers, within 1e-3 of max|plain|, two launches the
-    same bits, one launch counted each."""
+def test_window_sum_adversarial(plan):
+    """P1 at `WINDOW_SUM_CASES`: NB no multiple of a cluster's 8 windows,
+    equal starts, starts at 0 and N - W, unaligned starts, W = 32, N = W, C 8
+    .. 256, N no multiple of 128 or 8, random starts at W 6144: every layout
+    that holds the case, 1 and 2 buffers, within 1e-3 of max|plain|, two
+    launches the same bits, one launch counted each."""
     from gcdlss_tpu_torch.tools.conv_parts import check_window_sum_case
 
-    check_window_sum_case(plan.stem_nbr.device, n, c, window, nb, kind)
+    _for_each([(plan.stem_nbr.device, *case) for case in WINDOW_SUM_CASES],
+              check_window_sum_case)
 
 
 def test_window_sum_refuses_what_the_kernel_does_not_serve(plan):
@@ -378,12 +394,15 @@ def test_conv_parts_reject_wrong_inputs(parts):
         cp.onehot_conv(x, nbr[:, :8].contiguous(), w)
 
 
-@pytest.mark.parametrize("n,k,ci,co", TILE_GEMM_SHAPES)
-def test_tile_gemm_ragged_shapes(plan, n, k, ci, co):
-    """P3 at N = 1 and around a block's rows, K odd, even and 1, Ci from one
-    16-byte piece up, Co that is no multiple of 8 and two column tiles:
-    within the tool's tolerance of the plain version, the same bits on every
-    launch."""
+def test_tile_gemm_ragged_shapes(plan):
+    """P3 at `TILE_GEMM_SHAPES`: N = 1 and around a block's rows, K odd, even
+    and 1, Ci from one 16-byte piece up, Co that is no multiple of 8 and two
+    column tiles: within the tool's tolerance of the plain version, the same
+    bits on every launch."""
+    _for_each([(plan, *shape) for shape in TILE_GEMM_SHAPES], _check_tile_gemm_shape)
+
+
+def _check_tile_gemm_shape(plan, n: int, k: int, ci: int, co: int) -> None:
     from gcdlss_tpu_torch.ops import conv_parts as cp
     from gcdlss_tpu_torch.tools.conv_parts import TOL
 
@@ -421,26 +440,26 @@ def test_tile_gemm_refuses_what_the_kernel_does_not_serve(plan):
                 assert cp.tile_gemm_fits(k, ci, co) == (lib.gcd_tile_gemm_scratch(k, ci, co) >= 0)
 
 
-@pytest.mark.parametrize("n_out,n_in,k,c,kind", GATHER_SUM_CASES)
-def test_gather_sum_ragged(plan, n_out, n_in, k, c, kind):
-    """P2 in every mode that serves the case, rolled and (K = 27) unrolled,
-    at N_out 1 .. 4,097, C 8 .. 256, K 1, 8, 27, on books with no entry,
-    every entry, entries at the last row of x, and N_in != N_out: index_only
-    bit for bit, the others within 1e-5 of max|plain|, one launch each."""
+def test_gather_sum_ragged(plan):
+    """P2 at `GATHER_SUM_CASES`, in every mode that serves the case, rolled
+    and (K = 27) unrolled, at N_out 1 .. 4,097, C 8 .. 256, K 1, 8, 27, on
+    books with no entry, every entry, entries at the last row of x, and N_in
+    != N_out: index_only bit for bit, the others within 1e-5 of max|plain|,
+    one launch each."""
     from gcdlss_tpu_torch.tools.conv_parts import check_gather_sum_case
 
-    check_gather_sum_case(plan.stem_nbr.device, n_out, n_in, k, c, kind)
+    _for_each([(plan.stem_nbr.device, *case) for case in GATHER_SUM_CASES],
+              check_gather_sum_case)
 
 
-@pytest.mark.parametrize("n_out,n_in,k,ci,co,kind", ONEHOT_CASES)
-def test_onehot_conv_adversarial(plan, n_out, n_in, k, ci, co, kind):
-    """P4 on the random book (most entries outside every window), no entry,
-    a single row, every entry inside one window; Ci 8 .. 256, Co 20 .. 256,
-    N_in != N_out: the conv within 1e-2 of max|plain|, `far` as the plain
-    rule counts it, two launches the same bits."""
+def test_onehot_conv_adversarial(plan):
+    """P4 at `ONEHOT_CASES`: the random book (most entries outside every
+    window), no entry, a single row, every entry inside one window; Ci 8 ..
+    256, Co 20 .. 256, N_in != N_out: the conv within 1e-2 of max|plain|,
+    `far` as the plain rule counts it, two launches the same bits."""
     from gcdlss_tpu_torch.tools.conv_parts import check_onehot_case
 
-    check_onehot_case(plan.stem_nbr.device, n_out, n_in, k, ci, co, kind)
+    _for_each([(plan.stem_nbr.device, *case) for case in ONEHOT_CASES], check_onehot_case)
 
 
 def test_onehot_conv_refuses_what_the_kernel_does_not_serve(plan):
@@ -519,3 +538,47 @@ def test_finetune_steps_match_the_cpu(extra):
         for k, r in ref.items():
             assert np.isfinite(got[k]), k
             assert abs(got[k] - r) <= REF_TOL * abs(r), (k, got[k], r)
+
+
+@pytest.mark.parametrize("kind", ["subm", "down", "up"])
+def test_f32_convs_round_to_bf16_and_sum_in_f32(plan, kind):
+    """An f32 model's conv on the card: x, W and the cotangent rounded to
+    bf16, K1 / K2 summing in f32, the result and dX in f32, dW in W's dtype;
+    equal to the plain versions on the bf16-rounded inputs."""
+    from gcdlss_tpu_torch.ops.fused_conv import pool_conv, subm_conv
+
+    if kind == "subm":
+        nbr, adj, valid = plan.levels[1].nbr3, plan.levels[1].nbr3.flip(1), plan.levels[1].valid
+    elif kind == "down":
+        nbr, adj, valid = plan.pools[0].children, plan.pools[0].upmap, plan.levels[0].valid
+    else:
+        nbr, adj, valid = plan.pools[0].upmap, plan.pools[0].children, plan.levels[1].valid
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dev = valid.device
+    ci, co, k = 48, 40, nbr.shape[1]
+    x = (torch.randn(valid.shape[0], ci, device=dev, generator=g) * valid[:, None]).requires_grad_()
+    w = torch.randn(k, ci, co, device=dev, generator=g).mul(0.1).requires_grad_()
+    cot = torch.randn(nbr.shape[0], co, device=dev, generator=g)
+    before = gather_gemm.launches, gather_gemm_backward.launches
+    out = subm_conv(x, nbr, w) if kind == "subm" else pool_conv(x, nbr.contiguous(),
+                                                                adj.contiguous(), w)
+    out.backward(cot)
+    assert (gather_gemm.launches - before[0], gather_gemm_backward.launches - before[1]) == (1, 1)
+    assert out.dtype == x.grad.dtype == w.grad.dtype == torch.float32
+    xb, wb, gb = x.detach().bfloat16(), w.detach().bfloat16(), cot.bfloat16()
+    _close(out, plain.gather_conv(xb, nbr.contiguous(), wb))
+    rdx, rdw = plain.gather_conv_backward(xb, gb, adj.contiguous(), wb)
+    _close(x.grad, rdx)
+    _close(w.grad, rdw)
+    # the rounding is what makes the difference: the f32 plain version differs
+    assert not torch.equal(out, plain.gather_conv(x.detach(), nbr.contiguous(), w.detach()))
+
+
+def test_f16_convs_still_raise(plan):
+    from gcdlss_tpu_torch.ops.fused_conv import subm_conv
+
+    nbr, valid = plan.levels[1].nbr3, plan.levels[1].valid
+    x = torch.zeros(valid.shape[0], 8, device=valid.device, dtype=torch.float16)
+    w = torch.zeros(27, 8, 8, device=valid.device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        subm_conv(x, nbr, w)

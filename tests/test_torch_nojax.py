@@ -47,7 +47,10 @@ def test_port_imports_no_jax():
             "gcdlss_tpu_torch.ops.conv_parts", "gcdlss_tpu_torch.tools.conv_parts",
             "gcdlss_tpu_torch.tools.stage2_split", "gcdlss_tpu_torch.train.finetune",
             "gcdlss_tpu_torch.train.feature_mixing", "gcdlss_tpu_torch.train.registry",
-            "gcdlss_tpu_torch.train.uncertainty", "gcdlss_tpu_torch.eval.sweep"} <= set(names)
+            "gcdlss_tpu_torch.train.uncertainty", "gcdlss_tpu_torch.eval.sweep",
+            "gcdlss_tpu_torch.main", "gcdlss_tpu_torch.config",
+            "gcdlss_tpu_torch.train.checkpoint", "gcdlss_tpu_torch.utils.logging",
+            "gcdlss_tpu_torch.utils.misc", "gcdlss_tpu_torch.utils.visualize"} <= set(names)
     proc = _run("import importlib, sys\n"
                 f"for n in {names!r}: importlib.import_module(n)\n" + REPORT_FORBIDDEN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -111,6 +114,52 @@ def test_parts_ab_fails_without_cuda():
                           cwd=ROOT, timeout=120)
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
+
+
+def test_cli_host_layer_imports_no_yaml_or_orbax():
+    """The CLI, its config reader and its checkpoints bring in no JAX, no
+    module of the JAX package, no YAML library and no orbax, on import and
+    through a configuration file read."""
+    mods = ("gcdlss_tpu_torch.main", "gcdlss_tpu_torch.config",
+            "gcdlss_tpu_torch.train.checkpoint")
+    banned = FORBIDDEN + ("yaml", "orbax")
+    proc = _run("import importlib, sys\n"
+                f"for n in {mods!r}: importlib.import_module(n)\n"
+                "from gcdlss_tpu_torch.config import CONFIG_DIR, load_config\n"
+                "load_config(str(CONFIG_DIR / 'semkitti_minkunet.yaml'))\n"
+                f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {banned!r})\n"
+                "print(bad)\nsys.exit(1 if bad else 0)\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cli_fails_without_cuda_unless_asked_for_the_cpu(tmp_path):
+    """`python -m gcdlss_tpu_torch.main` raises without a CUDA device (its
+    default `--device cuda`) and runs with `--device cpu`."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from gcdlss_tpu_torch.data import write_synthetic_kitti
+
+    write_synthetic_kitti(str(tmp_path / "kitti"), sequences=("00",), scans_per_seq=2,
+                          num_points=600, seed=1)
+    argv = [sys.executable, "-m", "gcdlss_tpu_torch.main", "--module", "ExpPretrain",
+            "--dataset_path", str(tmp_path / "kitti"), "--voxel_size", "0.2",
+            "--downsampling", "500", "--voxel_cap", "1024", "--arch", "MinkUNet14",
+            "--batch_size", "1", "--num_workers", "1", "--epochs", "1",
+            "--checkpoint_dir", str(tmp_path / "ck"), "--log_dir", str(tmp_path / "logs"),
+            "--split_dir", str(tmp_path / "split")]
+    env = {**_env(), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert not (tmp_path / "ck").exists()
+    proc = subprocess.run(argv + ["--device", "cpu"], capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "epoch 0: loss=" in proc.stdout
+    assert (tmp_path / "ck" / "exp" / "pretrained" / "state_dict.pt").is_file()
 
 
 def test_chip_smoke_fails_without_cuda():

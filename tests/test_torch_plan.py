@@ -26,6 +26,18 @@ from gcdlss_tpu_torch.utils.adversarial import neighbor_map_levels
 CAPS = (2048, 1536, 1024, 512, 512)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs on one CPU thread while this module's tests run:
+    the suite runs several workers at once, and each worker's default pool
+    of one thread a core oversubscribes the cores. The pool's size is
+    restored when the module's tests end."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand_coords(rng, n, lo=-50, hi=50, nbatch=2):
     c = rng.integers(lo, hi, size=(n, 3))
     b = rng.integers(0, nbatch, size=(n, 1))

@@ -28,6 +28,18 @@ CAPS = (2048, 1536, 1024, 512, 512)
 PLANES = (16, 16, 32, 32, 32, 16, 16, 16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs on one CPU thread while this module's tests run:
+    the suite runs several workers at once, and each worker's default pool
+    of one thread a core oversubscribes the cores. The pool's size is
+    restored when the module's tests end."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
 

@@ -18,6 +18,18 @@ from gcdlss_tpu_torch.train import schedule as tschedule
 from gcdlss_tpu_torch.train.pretrain import PretrainConfig
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs on one CPU thread while this module's tests run:
+    the suite runs several workers at once, and each worker's default pool
+    of one thread a core oversubscribes the cores. The pool's size is
+    restored when the module's tests end."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("use_scheduler", [True, False])
 def test_lr_schedule_matches_jax(use_scheduler):
     cfg = PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
