@@ -63,6 +63,16 @@ Phases, each of which raises on failure:
      `bench.py` Stage-2 configuration (MinkUNet34, bf16, 2 + 2 scans), 3
      steps with `plan_kernel=2` and 1 with `plan_kernel=1` through its own
      loaders, then `validate` on 4 scans;
+  7b. Stage-2 variants: every recipe of the discovery family at the same
+     configuration (`S2_VARIANTS`: fixed-prob, hybrid, oracle and MSP
+     thresholds, PolarMix-MT feature mixing, the Sinkhorn assigner, LiON, the
+     default recipe with the point-mode mixed plan and with no mixed
+     branch), 3 steps each and `validate`, each through a fresh module; per
+     config its device and host step times, peak memory, candidates, every
+     plan's overflow (combined, mixed, the point-mode quantizer: all 0),
+     Sinkhorn's Q rows (sum 1 within 1e-5), launches a step, finite losses;
+     before them the point-mode plan against the voxel-mode one on one batch
+     pair (`mix_modes_check`: the difference is the straddling voxels alone);
   8. remat: two Stage-1 steps of an f32 MinkUNet34 with `remat` off and on
      from the same weights and batch: equal losses and states, each run's
      peak memory and step times;
@@ -73,7 +83,9 @@ Phases, each of which raises on failure:
      (b) the same resumed at epoch 2; (c) `ExpMixExtraFineTuning` and (d)
      Stage 2 at the `bench.py` configuration, both warm-started from (a);
      (e) `--test` on (d)'s saved state, whose mIoU must equal (d)'s last
-     validation; (f) Stage 1 at MinkUNet50. Every run: finite losses, no
+     validation; (f) Stage 1 at MinkUNet50; (g) the Sinkhorn recipe, (h)
+     LiON and (j) PolarMix-MT, one epoch each from (a)'s handoff, and (i)
+     `--test` on (h)'s state, its mIoU equal to (h)'s. Every run: finite losses, no
      plan (train or eval) dropping a voxel, K1 and K3 launched (K2 in every
      training run), K4 not; step times, peak memory and the card printed.
   Phase 2 also holds K1/K2 at MinkUNet50's pool-conv widths (downs 128,
@@ -83,7 +95,7 @@ Phases, each of which raises on failure:
   f32 sums). Each phase's wall time is printed.
 
 Each path (the tool's `main`, the Stage-1 slice, each run of the Stage-1.5
-slice, the Stage-2 slice, each CLI run) sets every kernel's launch count to
+slice, the Stage-2 slice, each Stage-2 variant, each CLI run) sets every kernel's launch count to
 0 just before it and reads it just after: each kernel of its path must have
 launched.
 Every kernel row carries its bound, the least time the card could take for
@@ -1116,6 +1128,300 @@ def stage2_phase(device, gpu_name: str) -> dict:
     return launches
 
 
+# (tag, registry recipe, overrides on top of it) of the variants phase: the
+# seven recipes beside the default one, the default one with the point-mode
+# mixed plan, and with no mixed branch
+S2_VARIANTS = (
+    ("fixed_prob", "ExpMergeDiscover_LaserMix_MeanTeacher", {}),
+    ("hybrid", "ExpMergeDiscover_LaserMix_MeanTeacher_HybridAdaptive", {}),
+    ("oracle", "ExpMergeDiscover_LaserMix_MeanTeacher_Oracle_threshold", {}),
+    ("msp", "ExpMergeDiscover_LaserMix_MeanTeacher_MSP_threshold", {}),
+    ("polarmix", "ExpMergeDiscover_PolarMix_MeanTeacher", {}),
+    ("sinkhorn", "ExpMixRealMeanTeacherDiscover", {}),
+    ("lion", "ExpMergeDiscover_LaserMix_LiON_MeanTeacher", {}),
+    ("point", "ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive", {"mix_plan_mode": "point"}),
+    ("none", "ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive", {"mix_mode": "none"}),
+)
+# the point-mode mixed plan's cap0 when the Stage-2 caps drop voxels there: a
+# voxel whose points fall in two pitch bands lands in both mixed scans
+POINT_MIX_CAP0 = S2_CAP0 + 18_432
+SINKHORN_ROW_TOL = 1e-5  # |row sum of Q - 1| on valid candidate rows
+
+
+class PlanProbe:
+    """Inside, every plan the training and evaluation steps build reports
+    on the device, for `read`: the overflow of each plan of
+    `train.common.plan_and_gather` (the combined and evaluation plans) and
+    of each Stage-2 mixed plan (`train.discover`'s `build_unet_plan`), the
+    voxels the point-mode quantizer dropped, and the largest |row sum - 1|
+    of the valid rows of each Sinkhorn assignment."""
+
+    NAMES = ("main", "mix", "quantize", "q_row_err")
+
+    def __enter__(self):
+        import torch
+
+        from gcdlss_tpu_torch.ops.plan import plan_capacity_overflow
+        from gcdlss_tpu_torch.train import common, discover
+
+        self.orig = {"common": common.build_unet_plan, "mix": discover.build_unet_plan,
+                     "quantize": discover.sparse_quantize, "sinkhorn": discover.sinkhorn_knopp}
+        self.mods = (common, discover)
+        self.seen = {k: [] for k in self.NAMES}
+
+        def plan_probe(tag, fn):
+            def probe(*args, **kw):
+                plan = fn(*args, **kw)
+                self.seen[tag].append(plan_capacity_overflow(plan))
+                return plan
+            return probe
+
+        def quantize_probe(points, batch_idx, valid, voxel_size, capacity):
+            vox = self.orig["quantize"](points, batch_idx, valid, voxel_size, capacity)
+            self.seen["quantize"].append((vox["count"] - capacity).clamp(min=0))
+            return vox
+
+        def sinkhorn_probe(features, head, valid=None, **kw):
+            q = self.orig["sinkhorn"](features, head, valid=valid, **kw)
+            err = (q.sum(dim=1) - 1.0).abs()
+            self.seen["q_row_err"].append(torch.where(valid, err, 0.0).max())
+            return q
+
+        common.build_unet_plan = plan_probe("main", self.orig["common"])
+        discover.build_unet_plan = plan_probe("mix", self.orig["mix"])
+        discover.sparse_quantize = quantize_probe
+        discover.sinkhorn_knopp = sinkhorn_probe
+        return self
+
+    def __exit__(self, *exc):
+        common, discover = self.mods
+        common.build_unet_plan = self.orig["common"]
+        discover.build_unet_plan = self.orig["mix"]
+        discover.sparse_quantize = self.orig["quantize"]
+        discover.sinkhorn_knopp = self.orig["sinkhorn"]
+
+    def read(self) -> dict:
+        """Per name, the values since the last read, as floats."""
+        import torch
+
+        seen, self.seen = self.seen, {k: [] for k in self.NAMES}
+        return {k: torch.stack(v).float().tolist() if v else [] for k, v in seen.items()}
+
+
+def voxel_keys(coords, valid) -> np.ndarray:
+    """Packed int64 (b, x, y, z) keys of the valid rows, on the host."""
+    from gcdlss_tpu_torch.ops.coords import encode_coords, pack_keys
+
+    return pack_keys(*encode_coords(coords, valid))[valid].cpu().numpy()
+
+
+def mix_modes_check(module, sup, unsup, caps) -> dict:
+    """The point-mode mixed plan against the voxel-mode one on the same
+    batch pair and the same draws, with the teacher's pseudo labels.
+
+    On the host, from the points: each point's mixed scan (its own band
+    parity) and voxel, each source voxel's mixed scan in voxel mode (its
+    center's parity); a source voxel straddles when one of its points goes
+    to another mixed scan than its center. The point-mode plan (at
+    POINT_MIX_CAP0) must hold exactly the (mixed scan, voxel) pairs of the
+    points, the voxel-mode plan exactly those of the source voxels; the two
+    may differ only at straddling voxels, so the voxel counts differ by the
+    voxels straddling adds less those it takes away; on the voxels both
+    hold that no straddling voxel shares, features and labels must be
+    equal. Also reports what point mode drops at the Stage-2 `caps`."""
+    import dataclasses
+
+    import torch
+
+    from gcdlss_tpu_torch.ops.coords import FIELD
+    from gcdlss_tpu_torch.ops.plan import plan_capacity_overflow
+    from gcdlss_tpu_torch.train import discover
+    from gcdlss_tpu_torch.train.common import (default_caps, plan_and_gather,
+                                               point_batch_to_device, voxel_batch_to_device)
+    from gcdlss_tpu_torch.train.lasermix import band_parity
+
+    cfg, dev = module.cfg, module.device
+    s, vs = cfg.num_sup_scans, cfg.voxel_size
+    vbs = [voxel_batch_to_device(b["voxel"], dev) for b in (sup, unsup)]
+    pbs = [point_batch_to_device(b["points"], dev) for b in (sup, unsup)]
+    na = discover.draw_step_randoms(module.state, cfg)["num_areas"]
+    with torch.no_grad():
+        plan, feats0, _, mapped0 = plan_and_gather(discover._combine_batches(*vbs, cfg),
+                                                   cfg.voxel_caps)
+        valid0 = plan.levels[0].valid
+        is_sup = (plan.rep < cfg.voxel_caps[0]) & (plan.rep < cfg.sup_voxel_cap)
+        module.state.teacher.train()
+        maxp, argm = torch.softmax(discover.assemble_dummy_logits(
+            module.state.teacher(plan, feats0)), dim=-1).max(dim=-1)
+        args = (plan, feats0, mapped0, is_sup, valid0 & ~is_sup, maxp, argm, na, *pbs)
+        out = {mode: discover.mixed_plan(dataclasses.replace(
+            cfg, mix_plan_mode=mode, mix_voxel_caps=mcaps), *args)
+            for mode, mcaps in (("voxel", caps), ("point", default_caps(POINT_MIX_CAP0)))}
+        at_caps = discover.mixed_plan(dataclasses.replace(cfg, mix_plan_mode="point",
+                                                          mix_voxel_caps=caps), *args)[0]
+        step = torch.tensor(vs, dtype=torch.float32, device=dev)
+        point_key, center_key, source_key, moved = [], [], [], []
+        for side, pb in enumerate(pbs):
+            xyz, valid = pb["xyz"], pb["valid"]
+            c = torch.floor(xyz / step).to(torch.int32)
+            par_p = band_parity(xyz, na)
+            par_c = band_parity((c.to(torch.float32) + 0.5) * vs, na)  # lasermix_voxel_groups
+            pair = torch.arange(s, dtype=torch.int32, device=dev)[:, None].expand_as(par_p)
+            g_p = torch.where(par_p == side, pair, s + pair)  # sup: even bands, unsup: odd
+            g_c = torch.where(par_c == side, pair, s + pair)
+            for keys, b in ((point_key, g_p), (center_key, g_c), (source_key, side * s + pair)):
+                keys.append(torch.cat([b[..., None], c], -1)[valid])
+            moved.append((g_p != g_c)[valid])
+        cat = [torch.cat(k) for k in (point_key, center_key, source_key, moved)]
+        every = torch.ones_like(cat[3])
+        m_host = np.unique(voxel_keys(cat[0], every))
+        v_host = np.unique(voxel_keys(cat[1], every))
+        straddlers = np.unique(voxel_keys(cat[2], cat[3]))
+        lvl = {mode: out[mode][0].levels[0] for mode in out}
+        m_dev, v_dev = (voxel_keys(lvl[m].coords, lvl[m].valid) for m in ("point", "voxel"))
+        dropped_at_caps = (max(len(m_dev) - caps[0], 0), int(plan_capacity_overflow(at_caps)))
+
+    def pair_voxel(keys):  # (mixed or source scan b, voxel) -> (pair b mod S, voxel)
+        hi, lo = keys >> 32, keys & 0xFFFFFFFF
+        return (((hi // FIELD) % s) * FIELD + hi % FIELD) << 32 | lo
+
+    straddle_pv = np.unique(pair_voxel(straddlers))
+    only = np.setxor1d(m_host, v_host)
+    shared = np.intersect1d(m_host, v_host)
+    shared = shared[~np.isin(pair_voxel(shared), straddle_pv)]
+    rows = {"point": np.searchsorted(m_dev, shared), "voxel": np.searchsorted(v_dev, shared)}
+    feats = {m: out[m][1].float().cpu().numpy()[rows[m]] for m in out}
+    labels = {m: out[m][2].cpu().numpy()[rows[m]] for m in out}
+    res = dict(voxels_point=len(m_dev), voxels_voxel=len(v_dev), straddlers=len(straddlers),
+               point_only=len(np.setdiff1d(m_host, v_host)),
+               voxel_only=len(np.setdiff1d(v_host, m_host)), shared_compared=len(shared),
+               feature_mismatch=int((feats["point"] != feats["voxel"]).any(1).sum()),
+               label_mismatch=int((labels["point"] != labels["voxel"]).sum()),
+               quantizer_drops_at_caps=dropped_at_caps[0], plan_drops_at_caps=dropped_at_caps[1])
+    log(f"stage2 variants: point vs voxel mode on one batch pair (num_areas {int(na)}): {res}")
+    if not (np.array_equal(m_dev, m_host) and np.array_equal(v_dev, v_host)):
+        raise AssertionError("stage2 variants: a mixed plan's voxels differ from the points'")
+    if not np.isin(pair_voxel(only), straddle_pv).all():
+        raise AssertionError("stage2 variants: point and voxel mode differ off the straddlers")
+    if len(m_dev) - len(v_dev) != res["point_only"] - res["voxel_only"]:
+        raise AssertionError(f"stage2 variants: voxel counts {len(m_dev)} / {len(v_dev)}")
+    if res["feature_mismatch"] or res["label_mismatch"] or not len(shared):
+        raise AssertionError(f"stage2 variants: shared voxels differ: {res}")
+    return res
+
+
+def stage2_variants_phase(device, card: str) -> dict:
+    """Every Stage-2 recipe of the discovery family as a user runs it, at the
+    `bench.py` Stage-2 configuration (MinkUNet34, bf16, 2 + 2 scans of 80k
+    points, cap0 276,480): for each of S2_VARIANTS, a fresh module's
+    `train_epoch` over 3 step pairs, then `validate` on 4 scans, the kernels'
+    counts set to 0 before and read after (train steps and validate apart).
+    First `mix_modes_check` on the first batch pair; point mode trains at the
+    Stage-2 caps if it drops nothing there, else at POINT_MIX_CAP0. Fails on
+    a non-finite loss, any overflow (combined plan, mixed plan, point-mode
+    quantizer), a Sinkhorn Q whose valid rows do not sum to 1 within
+    SINKHORN_ROW_TOL, or a kernel of the path not launched. Returns the
+    launches per config and in all."""
+    import torch
+
+    from gcdlss_tpu_torch.data import SemanticKITTIDataset
+    from gcdlss_tpu_torch.main import resolve_discover_overrides
+    from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.discover import DiscoverConfig
+    from gcdlss_tpu_torch.train.modules import ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    caps = default_caps(S2_CAP0)
+    unknown, mapping, inv, unk = label_space()
+    fields = dict(num_labeled_classes=17, num_unlabeled_classes=2, num_classes=19,
+                  unknown_label=unk, voxel_caps=caps, sup_voxel_cap=CAP0, mix_voxel_caps=caps,
+                  num_sup_scans=BATCH, point_cap=POINTS_PER_SCAN, voxel_size=VOXEL_SIZE,
+                  arch="MinkUNet34", planes=DEFAULT_PLANES, dtype="bfloat16", cand_cap=4096,
+                  queue_slots=20, queue_per_slot=1024, kmeans_iters=15, steps_per_epoch=1000)
+    common = dict(voxel_size=VOXEL_SIZE, downsampling=POINTS_PER_SCAN, augment=True,
+                  label_mapping=mapping, unknown_labels=unknown)
+    launches, rows = {}, {}
+
+    def counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp, PlanProbe() as probe:
+        root = Path(tmp)
+        write_kitti_tree(root, np.random.default_rng(4), 6 * BATCH, 2 * BATCH)
+        split = np.arange(3 * BATCH)
+        lab = SemanticKITTIDataset(str(root), "train", split_indices=split, labeled=True,
+                                   resize_aug=True, seed=0, **common)
+        unlab = SemanticKITTIDataset(str(root), "train", split_indices=split, labeled=False,
+                                     seed=1, **common)
+        val_ds = SemanticKITTIDataset(str(root), "valid", voxel_size=VOXEL_SIZE,
+                                      label_mapping=mapping, unknown_labels=unknown)
+        # the default recipe's module, on the first batch pair (the check's
+        # teacher forward moves its statistics: a module of its own)
+        module = ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(
+            DiscoverConfig(**fields), mapping, inv, seed=0, device=device)
+        res = rows["mix_modes"] = mix_modes_check(
+            module, *next(zip(*module.make_loaders(lab, unlab, num_workers=2))), caps)
+        point_caps = (caps if not (res["quantizer_drops_at_caps"] or res["plan_drops_at_caps"])
+                      else default_caps(POINT_MIX_CAP0))
+        for tag, recipe, extra in S2_VARIANTS:
+            overrides = {**resolve_discover_overrides(recipe, "SemanticKITTI"), **extra}
+            if overrides.get("mix_plan_mode") == "point":
+                overrides["mix_voxel_caps"] = point_caps
+            cfg = DiscoverConfig(**{**fields, **overrides})
+            del module
+            torch.cuda.empty_cache()
+            module = ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(cfg, mapping, inv, seed=0,
+                                                                    device=device)
+            loaders = module.make_loaders(lab, unlab, num_workers=2)
+            probe.read()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kernels.values():
+                fn.launches = 0
+            module.train_epoch(*loaders)
+            train = counts()
+            seen = probe.read()
+            vm = module.validate(val_ds, num_workers=2)
+            launches[tag] = counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = module.step_log
+            n = len(steps)
+            per_step = {k: round(v / max(n, 1), 2) for k, v in train.items()}
+            finite = all(np.isfinite(st[k]) for st in steps for k in S2_LOSS_TERMS + ("tau",))
+            rows[tag] = dict(
+                recipe=recipe, mix_cap0=cfg.mix_voxel_caps[0],
+                step_ms=[round(st["step_ms"], 1) for st in steps],
+                host_ms=[round(st["seconds"] * 1e3, 1) for st in steps], peak_gib=round(peak, 3),
+                n_cand=[int(st["n_cand"]) for st in steps], n_rel=[int(st["n_rel"]) for st in steps],
+                has_novel=[int(st["has_novel"]) for st in steps],
+                cand_overflow=[int(st["cand_overflow"]) for st in steps],
+                overflow_main=seen["main"], overflow_mix=seen["mix"],
+                quantizer_drops=seen["quantize"], q_row_err=seen["q_row_err"],
+                launches_a_step=per_step, launches=launches[tag], finite=finite,
+                loss=[round(st["loss"], 6) for st in steps], mIoU=vm["mIoU"])
+            log(f"stage2 variant {tag} ({card}): {json.dumps(rows[tag])}")
+            if n != 3 or not finite:
+                raise AssertionError(f"stage2 variant {tag}: {n} steps, finite {finite}")
+            if any(seen["main"]) or any(seen["mix"]) or any(seen["quantize"]):
+                raise AssertionError(f"stage2 variant {tag}: a plan dropped voxels: {seen}")
+            if cfg.assigner == "sinkhorn" and not (
+                    len(seen["q_row_err"]) == n and max(seen["q_row_err"]) <= SINKHORN_ROW_TOL):
+                raise AssertionError(f"stage2 variant {tag}: Q rows off 1: {seen['q_row_err']}")
+            if not all(launches[tag][k] > 0 for k in ("K1", "K2", "K3")) or launches[tag]["K4"]:
+                raise AssertionError(f"stage2 variant {tag}: launches {launches[tag]}")
+            if not vm["conf"].sum() > 0:
+                raise AssertionError(f"stage2 variant {tag}: empty confusion matrix")
+    launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
+    log(f"stage2 variants: launches {launches}")
+    return launches
+
+
 def remat_phase(device, card: str) -> dict:
     """One Stage-1 step pair (two `pretrain_train_step`s) of an f32
     MinkUNet34 with `remat` off and on, from the same weights and batch (2
@@ -1173,6 +1479,7 @@ def remat_phase(device, card: str) -> dict:
 
 
 CLI_TREE = (12, 2)  # train and valid scans: 6 labeled (split 1, 50%), 3 steps an epoch
+TEST_RUNS = {"e": "d", "i": "h"}  # a `--test` run -> the training run whose state it reads
 
 
 def cli_runs(root: Path) -> list:
@@ -1186,8 +1493,12 @@ def cli_runs(root: Path) -> list:
               str(root / "logs"), "--split_dir", str(root / "split"), "--device", "cuda"]
     s1_args = ["--module", "ExpPretrain", "--arch", "MinkUNet34", "--batch_size", str(BATCH),
                "--voxel_cap", str(CAP0), "--experiment", "s1"]
-    s2_args = ["--module", "ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive",
-               "--batch_size", str(2 * BATCH), "--voxel_cap", str(S2_CAP0), "--experiment", "s2"]
+
+    def variant(module: str, experiment: str) -> list:
+        return ["--module", module, "--batch_size", str(2 * BATCH), "--voxel_cap", str(S2_CAP0),
+                "--experiment", experiment]
+
+    s2_args = variant("ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive", "s2")
     return [
         ("a", common + s1_args + ["--epochs", "2"], "Stage 1, 2 epochs"),
         ("b", common + s1_args + ["--epochs", "3", "--resume_checkpoint", "1"],
@@ -1202,49 +1513,27 @@ def cli_runs(root: Path) -> list:
         ("f", common + ["--module", "ExpPretrain", "--arch", "MinkUNet50", "--batch_size",
                         str(BATCH), "--voxel_cap", str(CAP0), "--experiment", "s1m50",
                         "--epochs", "1"], "Stage 1 at MinkUNet50"),
+        ("g", common + variant("ExpMixRealMeanTeacherDiscover", "s2sk") + ["--pretrained", s1,
+                                                                          "--epochs", "1"],
+         "Stage 2, Sinkhorn assigner, from the handoff"),
+        ("h", common + variant("ExpMergeDiscover_LaserMix_LiON_MeanTeacher", "s2lion")
+         + ["--pretrained", s1, "--epochs", "1"], "Stage 2, LiON, from the handoff"),
+        ("i", common + variant("ExpMergeDiscover_LaserMix_LiON_MeanTeacher", "s2lion")
+         + ["--test", "--checkpoint", str(ck / "s2lion")], "Stage 2 LiON --test on (h)'s state"),
+        ("j", common + variant("ExpMergeDiscover_PolarMix_MeanTeacher", "s2pm")
+         + ["--pretrained", s1, "--epochs", "1"], "Stage 2, PolarMix-MT, from the handoff"),
     ]
-
-
-class PlanProbe:
-    """Inside, every plan the training and evaluation steps build (the
-    `build_unet_plan` of `train.common.plan_and_gather` and of Stage 2's
-    mixed plan) has its capacity overflow kept, on the device, for `read`."""
-
-    def __enter__(self):
-        from gcdlss_tpu_torch.ops.plan import plan_capacity_overflow
-        from gcdlss_tpu_torch.train import common, discover
-
-        self.mods, self.counts = (common, discover), []
-        self.orig = common.build_unet_plan
-
-        def probe(*args, **kw):
-            plan = self.orig(*args, **kw)
-            self.counts.append(plan_capacity_overflow(plan))
-            return plan
-
-        for mod in self.mods:
-            mod.build_unet_plan = probe
-        return self
-
-    def __exit__(self, *exc):
-        for mod in self.mods:
-            mod.build_unet_plan = self.orig
-
-    def read(self) -> tuple:
-        """(plans built, voxels they dropped) since the last read."""
-        import torch
-
-        counts, self.counts = self.counts, []
-        return len(counts), int(torch.stack(counts).sum()) if counts else 0
 
 
 def cli_phase(device, card: str) -> dict:
     """The port's CLI as a user runs it (`cli_runs`): on one synthetic
     SemanticKITTI tree, Stage 1 with a checkpoint an epoch and its handoff,
     a resume, Stage 1.5 and Stage 2 warm-started from it, `--test` on Stage
-    2's saved state, and Stage 1 at MinkUNet50. Each run: finite losses, no
-    plan dropping a voxel, K1 and K3 launched (K2 in every training run), K4
-    not. Returns the launches per run and in all."""
+    2's saved state, Stage 1 at MinkUNet50, and the Sinkhorn, LiON (then
+    `--test`) and PolarMix-MT recipes from the handoff. Each run: finite
+    losses, no plan dropping a voxel, K1 and K3 launched (K2 in every
+    training run), K4 not; each `--test` gives its training run's last
+    mIoU. Returns the launches per run and in all."""
     import torch
 
     from gcdlss_tpu_torch import main as cli
@@ -1270,7 +1559,9 @@ def cli_phase(device, card: str) -> dict:
             torch.cuda.synchronize()
             launches[tag] = {name: fn.launches for name, fn in kernels.items()}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            plans, dropped = probe.read()
+            seen = probe.read()
+            plans = len(seen["main"]) + len(seen["mix"])
+            dropped = int(sum(seen["main"]) + sum(seen["mix"]) + sum(seen["quantize"]))
             module = rec["module"]
             steps = getattr(module, "step_log", [])
             for i, st in enumerate(steps):
@@ -1284,7 +1575,7 @@ def cli_phase(device, card: str) -> dict:
             log(f"cli ({tag}) {what}: {len(steps)} steps, start epoch {rec['start_epoch']}, "
                 f"{plans} plans dropped {dropped} voxels; peak memory {peak:.3f} GiB ({card}); "
                 f"wall {time.perf_counter() - t0:.1f} s; launches {launches[tag]}")
-            train = tag != "e"
+            train = tag not in TEST_RUNS
             bad = [(i, k) for i, st in enumerate(steps) for k, v in st.items()
                    if isinstance(v, float) and not np.isfinite(v)]
             if train and (not steps or bad):
@@ -1304,10 +1595,13 @@ def cli_phase(device, card: str) -> dict:
         raise AssertionError("cli: (a) must run epochs 0, 1 and (b) epoch 2 alone")
     log(f"cli (d): has_novel {[st['has_novel'] for st in records['d']['module'].step_log]}, "
         f"n_cand {[st['n_cand'] for st in records['d']['module'].step_log]}")
-    last, tested = records["d"]["history"][-1]["valid/mIoU"], records["e"]["result"]["mIoU"]
-    log(f"cli: (d)'s last validate mIoU {last!r}, (e)'s --test mIoU {tested!r}")
-    if tested != last:
-        raise AssertionError(f"cli: --test on (d)'s state gives mIoU {tested}, (d) gave {last}")
+    for test, run in TEST_RUNS.items():
+        last = records[run]["history"][-1]["valid/mIoU"]
+        tested = records[test]["result"]["mIoU"]
+        log(f"cli: ({run})'s last validate mIoU {last!r}, ({test})'s --test mIoU {tested!r}")
+        if tested != last:
+            raise AssertionError(f"cli: --test on ({run})'s state gives mIoU {tested}, ({run}) "
+                                 f"gave {last}")
     launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
     return launches
 
@@ -1358,19 +1652,22 @@ def main() -> int:
     launches_s1, s1_weights = phase("stage1", stage1_phase, device, gpu_name)
     launches_s15 = phase("stage1.5", stage15_phase, device, card, s1_weights)
     launches_s2 = phase("stage2", stage2_phase, device, gpu_name)
+    launches_var = phase("stage2 variants", stage2_variants_phase, device, card)
     peaks_remat = phase("remat", remat_phase, device, card)
     launches_cli = phase("cli", cli_phase, device, card)
     log(f"phases (wall s): {json.dumps({k: round(v, 1) for k, v in wall.items()})}; "
         f"remat peaks (GiB) {peaks_remat}")
     # `launches`: K1-K4 on the Stage-2 path (the training path that runs all
     # four; `launches_stage1` the Stage-1 path, `launches_stage15` the
-    # Stage-1.5 phase, `launches_cli` the CLI's six runs together), P1-P4 in
+    # Stage-1.5 phase, `launches_variants` the Stage-2 variants together,
+    # `launches_cli` the CLI's ten runs together), P1-P4 in
     # the tool's main run (their only path; K1's launches there are
     # `launches_parts`)
     for r in rows:
         r["launches"] = launches_s2[r["name"][:2]]
         r["launches_stage1"] = launches_s1[r["name"][:2]]
         r["launches_stage15"] = launches_s15["total"][r["name"][:2]]
+        r["launches_variants"] = launches_var["total"][r["name"][:2]]
         if r["name"][:2] == "K1":
             r["launches_parts"] = launches_parts["K1"]
     for r in part_rows:
@@ -1380,7 +1677,8 @@ def main() -> int:
         r["launches_cli"] = launches_cli["total"][r["name"][:2]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_stage1", "launches_stage15", "launches_cli", "launches_parts",
+    extra = ("launches_stage1", "launches_stage15", "launches_variants", "launches_cli",
+             "launches_parts",
              "bound_measured_ms",
              "bound_dense_ms", "fill",
              "far_entries",

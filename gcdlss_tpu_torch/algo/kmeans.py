@@ -1,5 +1,5 @@
-"""Masked cosine k-means over a padded feature set (PyTorch port of
-`gcdlss_tpu/algo/kmeans.py`).
+"""Masked cosine and euclidean k-means over a padded feature set (PyTorch
+port of `gcdlss_tpu/algo/kmeans.py`).
 
 Replaces `fast_pytorch_kmeans.KMeans(mode='cosine')` of the reference's
 Stage-2 over-clustering. Every Lloyd iteration is one [N, C] x [C, K] product
@@ -26,6 +26,25 @@ def _select_init(x: torch.Tensor, valid: torch.Tensor, k: int,
     return x[idx]
 
 
+def _kmeans(feats, valid, k: int, scores, iters: int, cosine: bool):
+    x = _normalize(feats) if cosine else feats
+    x = x * valid[:, None].to(x.dtype)
+    cents = _select_init(x, valid, k, scores)
+    vmask = valid[:, None].to(x.dtype)
+
+    def sim(cents):
+        if cosine:
+            return x @ _normalize(cents).T
+        return 2 * (x @ cents.T) - (cents * cents).sum(dim=-1)[None, :]
+
+    for _ in range(iters):
+        onehot = torch.nn.functional.one_hot(sim(cents).argmax(dim=-1), k).to(x.dtype) * vmask
+        sums = onehot.T @ x
+        counts = onehot.sum(dim=0)[:, None]
+        cents = torch.where(counts > 0, sums / counts.clamp(min=1.0), cents)
+    return torch.where(valid, sim(cents).argmax(dim=-1), -1).to(torch.int32), cents
+
+
 def cosine_kmeans(feats: torch.Tensor, valid: torch.Tensor, k: int, scores: torch.Tensor,
                   iters: int = 20):
     """Returns (assignments [N] int32, -1 for invalid rows; centroids [K, C]).
@@ -34,14 +53,11 @@ def cosine_kmeans(feats: torch.Tensor, valid: torch.Tensor, k: int, scores: torc
     among the valid rows. Centroids are means of the normalized member
     vectors (fast_pytorch_kmeans' cosine mode); a cluster left empty keeps
     its centroid."""
-    x = _normalize(feats) * valid[:, None].to(feats.dtype)
-    cents = _select_init(x, valid, k, scores)
-    vmask = valid[:, None].to(x.dtype)
-    for _ in range(iters):
-        assign = (x @ _normalize(cents).T).argmax(dim=-1)
-        onehot = torch.nn.functional.one_hot(assign, k).to(x.dtype) * vmask
-        sums = onehot.T @ x
-        counts = onehot.sum(dim=0)[:, None]
-        cents = torch.where(counts > 0, sums / counts.clamp(min=1.0), cents)
-    assign = (x @ _normalize(cents).T).argmax(dim=-1)
-    return torch.where(valid, assign, -1).to(torch.int32), cents
+    return _kmeans(feats, valid, k, scores, iters, True)
+
+
+def euclidean_kmeans(feats: torch.Tensor, valid: torch.Tensor, k: int, scores: torch.Tensor,
+                     iters: int = 20):
+    """`cosine_kmeans` on the raw rows with the squared euclidean distance
+    (assignments by the largest 2 <x, c> - |c|^2)."""
+    return _kmeans(feats, valid, k, scores, iters, False)

@@ -1,7 +1,7 @@
 """Evaluation: confusion matrix, IoU, and the Stage-1 and Stage-2 protocols.
 
-Port of `gcdlss_tpu/eval/metrics.py` (the Stage-1 and Stage-2 protocols):
-`confusion_update` runs on tensors on the device, the rest on small numpy
+Port of `gcdlss_tpu/eval/metrics.py`: `confusion_update` runs on tensors on
+the device, the protocols and the streaming `SemanticEval` on small numpy
 matrices on the host.
 """
 
@@ -65,3 +65,30 @@ def discovery_iou(conf: np.ndarray, known_ids, unknown_ids, num_classes: int):
     include[unknown_ids] = unknown_ids[np.argsort(col_ind)]
     iou = get_iou(conf, include)
     return iou, float(iou.mean()), float(iou[known_ids].mean()), float(iou[unknown_ids].mean())
+
+
+class SemanticEval:
+    """Streaming numpy confusion / IoU evaluator (cf. the reference's
+    `utils/eval.py`, `utils/np_ioueval.py`)."""
+
+    def __init__(self, num_classes: int, ignore=()):
+        self.num_classes = num_classes
+        self.ignore = set(ignore)
+        self.include = [c for c in range(num_classes) if c not in self.ignore]
+        self.reset()
+
+    def reset(self):
+        self.conf = np.zeros((self.num_classes, self.num_classes), np.int64)
+
+    def add_batch(self, preds: np.ndarray, labels: np.ndarray):
+        mask = (labels >= 0) & (labels < self.num_classes)
+        mask &= (preds >= 0) & (preds < self.num_classes)
+        np.add.at(self.conf, (preds[mask], labels[mask]), 1)
+
+    def get_sem_iou(self):
+        iou = get_iou(self.conf)
+        return float(np.mean(iou[self.include])), iou
+
+    def get_sem_acc(self):
+        tp = self.conf.diagonal()[self.include].sum()
+        return float(tp / max(self.conf[self.include].sum(), 1))

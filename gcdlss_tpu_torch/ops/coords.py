@@ -130,3 +130,18 @@ def sorted_unique_presorted(hi: torch.Tensor, lo: torch.Tensor, capacity: int):
     (uh, ul), rep, gid_clamped, count = _unique_from_sorted(sk[:n], order[:n], capacity)
     inverse = torch.where(valid, gid_clamped[slot.clamp(max=n - 1)], capacity).to(torch.int32)
     return (uh, ul), rep, inverse, count
+
+
+def lookup_sorted(uniq_hi: torch.Tensor, uniq_lo: torch.Tensor, q_hi: torch.Tensor,
+                  q_lo: torch.Tensor) -> torch.Tensor:
+    """Row of each (q_hi, q_lo) query key in a sorted, sentinel-padded key
+    table (the output of `sorted_unique`), or -1 where the key is absent or
+    is the sentinel. Any query shape; int32 result. One `searchsorted` on the
+    packed keys gives the first row whose key is not below the query, the
+    lower bound the JAX package's binary search converges to."""
+    cap = uniq_hi.shape[0]
+    table = pack_keys(uniq_hi, uniq_lo)
+    q = pack_keys(q_hi, q_lo)
+    pos = torch.searchsorted(table, q.reshape(-1)).reshape(q.shape).clamp(max=cap - 1)
+    found = (table[pos] == q) & (q_hi != SENTINEL_HI)
+    return torch.where(found, pos, -1).to(torch.int32)

@@ -1,20 +1,33 @@
 """Stage 2: mean-teacher generalized class discovery with LaserMix and the
-learnable NCC threshold (PyTorch port of `gcdlss_tpu/train/discover.py`, the
-reference's `ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive`).
+NCC threshold (PyTorch port of `gcdlss_tpu/train/discover.py`, the
+reference's `ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive` and its
+discovery family).
 
 One step: the combined sup + unsup plan, a teacher forward (train-mode batch
-norm, no gradient), the voxel-level LaserMix plan built from the teacher's
-pseudo labels, NCC candidate mining against the learnable logit threshold
-tau, cosine k-means over the candidates and the feature queue, a per-step
-Hungarian alignment, the student's forwards on both plans with the 8-term
-objective, one backward, SGD on the student and tau, the EMA teacher update
-and the queue push. Everything stays on the device: shapes are fixed and
-the novel branch is gated by a mask, never by a host branch.
+norm, no gradient), the LaserMix plan built from the teacher's pseudo
+labels, NCC candidate mining, the assignment of the candidates to novel
+classes, the student's forwards with the 8-term objective, one backward,
+SGD on the student and tau, the EMA teacher update and the queue push.
+Everything stays on the device: shapes are fixed and the novel branch is
+gated by a mask, never by a host branch.
 
-Ported is the default variant only: threshold_mode "adaptive_logit",
-assigner "kmeans_hungarian", mix_mode "lasermix", mix_plan_mode "voxel",
-use_lion False, linear heads, MinkUNet backbones. The k^3 neighbor maps
-go through K3 (`plan_kernel=2`) or K4 (`plan_kernel=1`).
+Every variant of the JAX step runs (`check_config` names the values):
+  * threshold_mode: "adaptive_logit" (learnable tau), "hybrid" (tau plus an
+    offset), "fixed_prob" (NCC probability), "oracle_logit" (fixed NCC
+    logit), "msp" (max known probability);
+  * assigner: "kmeans_hungarian" (cosine k-means over the candidates and the
+    queue, the alpha clusters the base head claims dropped, a per-step
+    Hungarian) or "sinkhorn" (Sinkhorn-Knopp against `final3`'s kernel,
+    the queue in the marginals);
+  * mix_mode: "lasermix" (the mixed plan and a third forward), "feature"
+    (PolarMix-MT: labeled feature pairs mixed through the heads, soft
+    targets) or "none";
+  * mix_plan_mode: "voxel" (the combined plan's voxels re-batched) or
+    "point" (the points mixed and re-quantized, the reference's protocol
+    and the voxel mode's oracle; needs the point batches);
+  * use_lion: the Gambler and energy losses in place of the calibration.
+Linear heads, MinkUNet backbones. The k^3 neighbor maps go through K3
+(`plan_kernel=2`) or K4 (`plan_kernel=1`).
 """
 
 from __future__ import annotations
@@ -28,23 +41,28 @@ from torch import nn
 from ..algo.hungarian import hungarian_small
 from ..algo.kmeans import cosine_kmeans
 from ..algo.queue import FeatureQueue, queue_flatten, queue_init, queue_push
+from ..algo.sinkhorn import sinkhorn_knopp
 from ..eval.metrics import confusion_update
-from ..losses import adaptive_threshold_loss, calibration_loss, cross_entropy, mse_prob_loss
+from ..losses import (adaptive_threshold_loss, calibration_loss, cross_entropy, mse_prob_loss,
+                      soft_cross_entropy)
+from ..losses_lion import energy_loss, gambler_loss
 from ..models.minkunet import (DEFAULT_PLANES, MinkUNetRC, assemble_dummy_logits,
-                               assemble_novel_logits)
+                               assemble_dummy_logits_from_heads, assemble_novel_logits)
 from ..ops.plan import PLAN_KERNELS, build_unet_plan, plan_capacity_overflow
+from ..ops.voxelize import sparse_quantize
 from .common import make_sgd, plan_and_gather, resolve_device
-from .lasermix import NUM_AREAS_CHOICES, lasermix_voxel_groups
+from .feature_mixing import draw_perms, mix_features
+from .lasermix import NUM_AREAS_CHOICES, lasermix_batch, lasermix_voxel_groups
 from .schedule import make_lr_schedule
 
-_FAMILY = "ROADMAP Queue 1 item 6, evaluation and the discovery family"
-# field -> (the ported value, the ROADMAP item that will port the others)
-_PORTED = {
-    "threshold_mode": ("adaptive_logit", _FAMILY),
-    "assigner": ("kmeans_hungarian", _FAMILY),
-    "mix_mode": ("lasermix", _FAMILY),
-    "mix_plan_mode": ("voxel", "ROADMAP Queue 1 item 4, the point-mode LaserMix oracle"),
-    "use_lion": (False, _FAMILY),
+# field -> the values the step runs
+_CHOICES = {
+    "threshold_mode": ("adaptive_logit", "hybrid", "fixed_prob", "oracle_logit", "msp"),
+    "assigner": ("kmeans_hungarian", "sinkhorn"),
+    "mix_mode": ("lasermix", "feature", "none"),
+    "mix_plan_mode": ("voxel", "point"),
+    "use_lion": (False, True),
+    "plan_kernel": PLAN_KERNELS,
 }
 
 
@@ -122,14 +140,11 @@ def make_discover_config(dataset: str, **kw) -> dict:
 
 
 def check_config(cfg: DiscoverConfig) -> None:
-    """Raise for a variant the port does not run yet, naming its ROADMAP item."""
-    for field, (ported, item) in _PORTED.items():
-        if getattr(cfg, field) != ported:
-            raise NotImplementedError(
-                f"DiscoverConfig.{field}={getattr(cfg, field)!r}: only {ported!r} is ported "
-                f"({item})")
-    if cfg.plan_kernel not in PLAN_KERNELS:
-        raise ValueError(f"plan_kernel must be one of {PLAN_KERNELS}, got {cfg.plan_kernel!r}")
+    """Raise ValueError for a value outside a variant field's set (`_CHOICES`)."""
+    for field, choices in _CHOICES.items():
+        if getattr(cfg, field) not in choices:
+            raise ValueError(f"DiscoverConfig.{field} must be one of {choices}, "
+                             f"got {getattr(cfg, field)!r}")
 
 
 @dataclass
@@ -139,7 +154,7 @@ class DiscoverState:
     tau: nn.Parameter  # learnable NCC logit threshold, trained with the student
     optimizer: torch.optim.Optimizer  # SGD over the student's parameters and tau
     queue: FeatureQueue
-    generator: torch.Generator  # LaserMix areas and k-means initial rows
+    generator: torch.Generator  # LaserMix areas, k-means initial rows, feature-mix pairs
     step: int = 0
 
 
@@ -181,15 +196,20 @@ def _cand_cap(cfg: DiscoverConfig) -> int:
 
 def draw_step_randoms(state: DiscoverState, cfg: DiscoverConfig) -> dict:
     """The step's random draws from the state's generator: LaserMix's
-    `num_areas` (int32 scalar from NUM_AREAS_CHOICES) and the k-means
-    initial-row scores (uniform [cand_cap + queue rows])."""
+    `num_areas` (int32 scalar from NUM_AREAS_CHOICES), the k-means
+    initial-row scores (uniform [cand_cap + queue rows]) and, with
+    mix_mode "feature", the two permutations of the cap0 rows that pair the
+    mixed features (`featmix_perms`)."""
     g = state.generator
     dev = g.device
     choices = torch.as_tensor(NUM_AREAS_CHOICES, dtype=torch.int32, device=dev)
     pick = torch.randint(len(NUM_AREAS_CHOICES), (), generator=g, device=dev)
     n = _cand_cap(cfg) + cfg.queue_slots * cfg.queue_per_slot
-    return {"num_areas": choices[pick],
-            "kmeans_scores": torch.rand(n, generator=g, device=dev)}
+    draws = {"num_areas": choices[pick],
+             "kmeans_scores": torch.rand(n, generator=g, device=dev)}
+    if cfg.mix_mode == "feature":
+        draws["featmix_perms"] = draw_perms(g, cfg.voxel_caps[0], 2, dev)
+    return draws
 
 
 def _combine_batches(sup_vb: dict, unsup_vb: dict, cfg: DiscoverConfig):
@@ -227,18 +247,115 @@ def _mixed_plan_voxel(cfg: DiscoverConfig, plan, feats0, mapped0, is_sup, pseudo
     return mix_plan, mix_feats0, mix_labels0
 
 
+def _mixed_plan_point(cfg: DiscoverConfig, sup_pb: dict, unsup_pb: dict, pseudo, num_areas):
+    """The reference's mixed plan: LaserMix the 2S x 2P points and quantize
+    them again (`exp_merge_mean_teacher.py:2856-2861`), at capacity
+    `mix_voxel_caps[0]`; the voxel mode's oracle. A voxel whose points fall
+    in two bands lands in both mixed scans, each time with its first point
+    in that band as representative."""
+    mxyz, mfeats, mlabels, mvalid = lasermix_batch(sup_pb, unsup_pb, pseudo, num_areas)
+    nscan, npt = mxyz.shape[0], mxyz.shape[1]
+    n = nscan * npt
+    bidx = torch.arange(nscan, dtype=torch.int32, device=mxyz.device).repeat_interleave(npt)
+    vox = sparse_quantize(mxyz.reshape(n, 3), bidx, mvalid.reshape(-1), cfg.voxel_size,
+                          cfg.mix_voxel_caps[0])
+    flat_feats = mfeats.reshape(n, -1)
+    mrep_ok = vox["rep"] < n
+    mrep = torch.where(mrep_ok, vox["rep"], 0).long()
+    mix_feats0 = flat_feats[mrep] * mrep_ok[:, None].to(flat_feats.dtype)
+    mix_labels0 = torch.where(mrep_ok, mlabels.reshape(-1)[mrep], -1)
+    mix_plan = build_unet_plan(vox["coords"], vox["valid"], cfg.mix_voxel_caps, presorted=True,
+                               plan_kernel=cfg.plan_kernel)
+    mix_ok = mix_plan.rep < cfg.mix_voxel_caps[0]
+    mix_safe = torch.where(mix_ok, mix_plan.rep, 0).long()
+    mix_feats0 = mix_feats0[mix_safe] * mix_ok[:, None].to(mix_feats0.dtype)
+    mix_labels0 = torch.where(mix_ok, mix_labels0[mix_safe], -1)
+    return mix_plan, mix_feats0, mix_labels0
+
+
+def mixed_plan(cfg: DiscoverConfig, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
+               num_areas, sup_pb=None, unsup_pb=None):
+    """The LaserMix plan of `cfg.mix_plan_mode` with its level-0 features and
+    labels (labeled rows their mapped labels, unlabeled rows the teacher's
+    argmax where its top probability reaches `pseudo_thr`, else -1).
+    Returns (mix_plan, mix_feats0, mix_labels0)."""
+    if cfg.mix_plan_mode == "voxel":
+        pseudo_vox = torch.where(unsup_mask & (maxp_t >= cfg.pseudo_thr), argm_t, -1).to(
+            mapped0.dtype)
+        return _mixed_plan_voxel(cfg, plan, feats0, mapped0, is_sup, pseudo_vox, num_areas)
+    if sup_pb is None or unsup_pb is None:
+        raise ValueError('mix_plan_mode="point" needs the point batches (sup_pb, unsup_pb)')
+    # each unlabeled point's pseudo label: the teacher's at its voxel's row
+    cap0, sup_cap = cfg.voxel_caps[0], cfg.sup_voxel_cap
+    vrow = unsup_pb["voxel_row"]
+    ok_p = vrow < (cap0 - sup_cap)
+    prow = plan.inverse[torch.where(ok_p, sup_cap + vrow, 0).long()]
+    ok_p = ok_p & (prow < cap0)
+    srow = torch.where(ok_p, prow, 0).long()
+    pseudo = torch.where(ok_p & (maxp_t[srow] >= cfg.pseudo_thr), argm_t[srow], -1).to(
+        torch.int32)
+    return _mixed_plan_point(cfg, sup_pb, unsup_pb, pseudo, num_areas)
+
+
+def candidate_mask(cfg: DiscoverConfig, dummy_t, probs_t, tau, unsup_mask):
+    """The unlabeled voxels the teacher calls novel, by `cfg.threshold_mode`."""
+    if cfg.threshold_mode in ("adaptive_logit", "hybrid"):
+        novel = dummy_t[:, -1] > tau + cfg.threshold_offset
+    elif cfg.threshold_mode == "oracle_logit":
+        novel = dummy_t[:, -1] > cfg.oracle_logit_thld
+    elif cfg.threshold_mode == "msp":
+        novel = probs_t[:, :-1].max(dim=-1).values < cfg.msp_threshold
+    else:  # fixed_prob
+        novel = probs_t[:, -1] > cfg.fixed_prob_thld
+    return novel & unsup_mask
+
+
+def _assign_kmeans_hungarian(cfg, heads, cand_feats, cand_valid, n_cand, qfeats, qvalid,
+                             scores):
+    """Cosine k-means over the candidates and the queue into Ku + alpha
+    clusters; the alpha clusters the base head claims most confidently are
+    dropped, the rest relabelled 0..M-1 and aligned to the novel head's
+    argmax by a Hungarian matching. Returns (rel_mask, n_rel, has_novel,
+    novel column per candidate)."""
+    K, Ku = cfg.num_labeled_classes, cfg.num_unlabeled_classes
+    cand_cap = cand_feats.shape[0]
+    all_valid = torch.cat([cand_valid, qvalid])
+    do_cluster = (n_cand > 0) & (all_valid.sum() > Ku + cfg.alpha)
+    nclu = Ku + cfg.alpha
+    assign_all, cents = cosine_kmeans(torch.cat([cand_feats, qfeats]), all_valid, nclu, scores,
+                                      iters=cfg.kmeans_iters)
+    cluster_logits = cents @ heads.final.kernel + heads.final.bias
+    top = torch.sort(cluster_logits.max(dim=-1).values, descending=True, stable=True)
+    unreliable = top.indices[:cfg.alpha]
+    assign = assign_all[:cand_cap].long()
+    rel_mask = cand_valid & ~(assign[:, None] == unreliable[None, :]).any(dim=1)
+    n_rel = rel_mask.sum().to(torch.int32)
+    has_novel = do_cluster & (n_rel > 0)
+    # compact-relabel the surviving clusters to 0..M-1
+    present = torch.zeros(nclu, dtype=torch.int32, device=cand_feats.device).scatter_reduce(
+        0, torch.where(rel_mask, assign, nclu - 1), rel_mask.to(torch.int32), "amax")
+    new_id = torch.cumsum(present, 0) - 1
+    rel_labels = new_id[assign.clamp(0, nclu - 1)].clamp(0, Ku - 1)
+    # per-step Hungarian: novel-head argmax against the cluster labels
+    novel_preds = (cand_feats @ heads.final3.kernel + heads.final3.bias).argmax(dim=-1)
+    cost = confusion_update(novel_preds, rel_labels, Ku, rel_mask)
+    row_of_col = hungarian_small(cost.float(), maximize=True)
+    return rel_mask, n_rel, has_novel, row_of_col[rel_labels] + K
+
+
 def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
-                        cfg: DiscoverConfig, draws: dict | None = None):
+                        cfg: DiscoverConfig, draws: dict | None = None,
+                        sup_pb: dict | None = None, unsup_pb: dict | None = None):
     """One Stage-2 step in place on `state`; returns (state, metrics), the
     metrics as tensors on the device.
 
     `draws` replaces the step's random draws (`draw_step_randoms`), e.g. with
-    the JAX package's. Point batches are not needed: the mixed plan is built
-    on the voxel grid."""
+    the JAX package's. The point batches `sup_pb` / `unsup_pb` are read only
+    by the point-mode mixed plan, which raises without them."""
     check_config(cfg)
     if draws is None:
         draws = draw_step_randoms(state, cfg)
-    K, Ku = cfg.num_labeled_classes, cfg.num_unlabeled_classes
+    K = cfg.num_labeled_classes
     student, teacher = state.student, state.teacher
     student.train()
     teacher.train()
@@ -264,15 +381,16 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         maxp_t, argm_t = probs_t.max(dim=-1)
 
     # ---- LaserMix plan from the teacher's pseudo labels ----
-    with torch.no_grad(), torch.profiler.record_function("discover/mix_plan"):
-        pseudo_vox = torch.where(unsup_mask & (maxp_t >= cfg.pseudo_thr), argm_t, -1).to(
-            mapped0.dtype)
-        mix_plan, mix_feats0, mix_labels0 = _mixed_plan_voxel(
-            cfg, plan, feats0, mapped0, is_sup, pseudo_vox, draws["num_areas"])
+    mix_plan = None
+    if cfg.mix_mode == "lasermix":
+        with torch.no_grad(), torch.profiler.record_function("discover/mix_plan"):
+            mix_plan, mix_feats0, mix_labels0 = mixed_plan(
+                cfg, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
+                draws["num_areas"], sup_pb, unsup_pb)
 
-    # ---- NCC candidate mining, k-means, Hungarian (teacher side, no grad) ----
+    # ---- NCC candidate mining and the novel assignment (teacher side, no grad) ----
     with torch.no_grad(), torch.profiler.record_function("discover/mining"):
-        cand_mask = (dummy_t[:, -1] > state.tau + cfg.threshold_offset) & unsup_mask
+        cand_mask = candidate_mask(cfg, dummy_t, probs_t, state.tau, unsup_mask)
         n_cand = cand_mask.sum().to(torch.int32)
         cand_cap = _cand_cap(cfg)
         # a capped subset in hashed row order: plan order is coordinate
@@ -284,37 +402,21 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         cand_rows = torch.argsort(key, stable=True)[:cand_cap]
         cand_valid = torch.arange(cand_cap, device=valid0.device) < n_cand.clamp(max=cand_cap)
         cand_feats = feats_t[cand_rows] * cand_valid[:, None]
-
         qfeats, qvalid = queue_flatten(state.queue)
-        all_feats = torch.cat([cand_feats, qfeats])
-        all_valid = torch.cat([cand_valid, qvalid])
-        n_all = all_valid.sum()
         heads = student.encoder
-        do_cluster = (n_cand > 0) & (n_all > Ku + cfg.alpha)
-        nclu = Ku + cfg.alpha
-        assign_all, cents = cosine_kmeans(all_feats, all_valid, nclu, draws["kmeans_scores"],
-                                          iters=cfg.kmeans_iters)
-        # drop the alpha clusters the base classifier claims most confidently
-        cluster_logits = cents @ heads.final.kernel + heads.final.bias
-        top = torch.sort(cluster_logits.max(dim=-1).values, descending=True, stable=True)
-        unreliable = top.indices[:cfg.alpha]
-        assign = assign_all[:cand_cap].long()
-        is_unreliable = (assign[:, None] == unreliable[None, :]).any(dim=1)
-        rel_mask = cand_valid & ~is_unreliable
-        n_rel = rel_mask.sum().to(torch.int32)
-        has_novel = do_cluster & (n_rel > 0)
-        # compact-relabel the surviving clusters to 0..M-1
-        present = torch.zeros(nclu, dtype=torch.int32, device=valid0.device).scatter_reduce(
-            0, torch.where(rel_mask, assign, nclu - 1), rel_mask.to(torch.int32), "amax")
-        new_id = torch.cumsum(present, 0) - 1
-        rel_labels = new_id[assign.clamp(0, nclu - 1)].clamp(0, Ku - 1)
-        # per-step Hungarian: novel-head argmax against the cluster labels
-        novel_preds = (cand_feats @ heads.final3.kernel + heads.final3.bias).argmax(dim=-1)
-        cost = confusion_update(novel_preds, rel_labels, Ku, rel_mask)
-        row_of_col = hungarian_small(cost.float(), maximize=True)
-        mapped_novel = row_of_col[rel_labels] + K
+        if cfg.assigner == "sinkhorn":
+            # Sinkhorn-Knopp against the novel head's kernel, the queue in
+            # the marginals: every candidate is kept
+            q_assign = sinkhorn_knopp(cand_feats, heads.final3.kernel, valid=cand_valid,
+                                      queue=qfeats, queue_valid=qvalid)
+            rel_mask, n_rel, has_novel = cand_valid, n_cand, n_cand > 0
+            mapped_novel = q_assign.argmax(dim=-1) + K
+        else:
+            rel_mask, n_rel, has_novel, mapped_novel = _assign_kmeans_hungarian(
+                cfg, heads, cand_feats, cand_valid, n_cand, qfeats, qvalid,
+                draws["kmeans_scores"])
 
-    # ---- student: main and mixed forwards, one loss, one backward ----
+    # ---- student forwards, one loss, one backward ----
     with torch.profiler.record_function("discover/student_main_fwd"):
         out_s = student(plan, feats0)
         dummy_s = assemble_dummy_logits(out_s)
@@ -324,14 +426,41 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         l_mse = cfg.mse_coeff * mse_prob_loss(torch.softmax(dummy_s, dim=-1), probs_t,
                                               unsup_mask)
     with torch.profiler.record_function("discover/student_mix_fwd"):
-        dummy_mix = assemble_dummy_logits(student(mix_plan, mix_feats0))
-        l_lm = cfg.lasermix_coeff * cross_entropy(dummy_mix, mix_labels0,
-                                                  mix_plan.levels[0].valid)
+        if cfg.mix_mode == "lasermix":
+            dummy_mix = assemble_dummy_logits(student(mix_plan, mix_feats0))
+            l_lm = cfg.lasermix_coeff * cross_entropy(dummy_mix, mix_labels0,
+                                                      mix_plan.levels[0].valid)
+        elif cfg.mix_mode == "feature":
+            # PolarMix-MT: labeled feature pairs mixed with soft targets,
+            # through the raw `final` / `final2` heads
+            mixf, mixp, mixok = mix_features(
+                None, feats_s, sup_targets, sup_mask & (sup_targets >= 0), K + 1,
+                mixing_ratio=cfg.mixing_ratio_feat, perms=draws["featmix_perms"])
+            mix_logits = assemble_dummy_logits_from_heads(
+                mixf, {"kernel": heads.final.kernel, "bias": heads.final.bias},
+                {"kernel": heads.final2.kernel, "bias": heads.final2.bias})
+            l_lm = cfg.lasermix_coeff * soft_cross_entropy(mix_logits, mixp, mixok)
+        else:
+            l_lm = torch.zeros((), device=valid0.device)
     with torch.profiler.record_function("discover/losses"):
-        l_cal = cfg.calib_coeff * calibration_loss(dummy_s, sup_targets, cfg.unknown_label,
-                                                   valid0)
-        l_thr = cfg.threshold_loss_weight * adaptive_threshold_loss(
-            dummy_s[:, -1], sup_targets, cfg.unknown_label, state.tau, valid0)
+        if cfg.use_lion:
+            # LiON: the Gambler and energy-margin losses in f32, in place of
+            # the calibration loss
+            l_gam = gambler_loss(dummy_s.float(), sup_targets, valid0, cfg.unknown_label,
+                                 reward_default=cfg.lion_reward, ood_reg=cfg.lion_ood_reg)
+            l_en, _ = energy_loss(dummy_s.float(), sup_targets, valid0,
+                                  ood_ind=cfg.unknown_label)
+            l_cal = cfg.lion_coeff * (l_gam + l_en)
+        else:
+            l_cal = cfg.calib_coeff * calibration_loss(dummy_s, sup_targets, cfg.unknown_label,
+                                                       valid0)
+        if cfg.threshold_mode in ("adaptive_logit", "hybrid"):
+            l_thr = cfg.threshold_loss_weight * adaptive_threshold_loss(
+                dummy_s[:, -1], sup_targets, cfg.unknown_label, state.tau, valid0)
+        else:
+            # tau stays in the graph with a zero gradient, so SGD still
+            # decays it, as optax's chain does in the JAX package
+            l_thr = 0.0 * state.tau
         # the novel terms, gated by has_novel
         g = has_novel.float()
         f2, f3 = heads.final2, heads.final3
@@ -373,12 +502,15 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         "ncc_unsup": g * l_ncc,
     }
     metrics = {k: v.detach() for k, v in metrics.items()}
+    # unique voxels dropped by the capacities of the main and mixed plans
+    plan_ovf = plan_capacity_overflow(plan)
+    if mix_plan is not None:
+        plan_ovf = plan_ovf + plan_capacity_overflow(mix_plan)
     metrics.update({
         "tau": state.tau.detach().clone(),
         "n_cand": n_cand,
         "cand_overflow": (n_cand - cand_cap).clamp(min=0),
-        # unique voxels dropped by the capacities of the main and mixed plans
-        "plan_overflow": plan_capacity_overflow(plan) + plan_capacity_overflow(mix_plan),
+        "plan_overflow": plan_ovf,
         "n_rel": n_rel,
         "has_novel": has_novel.to(torch.int32),
     })

@@ -1,13 +1,19 @@
-"""LaserMix on the voxel grid (PyTorch port of the voxel-level part of
+"""LaserMix: pitch-band scan mixing inside the step (PyTorch port of
 `gcdlss_tpu/train/lasermix.py`).
 
 Each (labeled, unlabeled) scan pair is split into `num_areas` pitch bands
 between -25 and 3 degrees; the even bands (counted from the top) of the
 labeled scan and the odd bands of the unlabeled scan form mixed scan 1, the
-complements mixed scan 2. LaserMix only selects points and never moves them,
-so the mixed scans share the combined batch's voxel grid:
-`lasermix_voxel_groups` assigns every combined level-0 voxel to one mixed
-scan by the band parity of the voxel's center.
+complements mixed scan 2. Two forms:
+
+  * on the points (`lasermix_pair`, `lasermix_batch`): each mixed scan keeps
+    the union [2P] of its pair's points with a membership mask, to be
+    re-quantized in the step (the point-mode mixed plan, the reference's
+    protocol);
+  * on the voxel grid (`lasermix_voxel_groups`): LaserMix only selects
+    points and never moves them, so the mixed scans share the combined
+    batch's voxel grid, and every combined level-0 voxel goes to one mixed
+    scan by the band parity of its center.
 
 `band_parity` truncates an f32 pitch ratio: a voxel center within an ulp of a
 band edge can fall on the other side of it than in the JAX package, whose
@@ -39,6 +45,44 @@ def band_parity(xyz: torch.Tensor, num_areas: torch.Tensor) -> torch.Tensor:
     band = ((up - p) / step).to(torch.int32)
     band = torch.minimum(band.clamp(min=0), num_areas.to(torch.int32) - 1)
     return band % 2
+
+
+def lasermix_pair(sup: dict, unsup: dict, num_areas: torch.Tensor) -> dict:
+    """Mix one labeled / unlabeled scan pair.
+
+    sup / unsup: dicts of `xyz` [P, 3], `feats` [P, C], `labels` [P], `valid`
+    [P] (the unsup labels are the teacher's pseudo labels, -1 where it is
+    unsure). Returns the union [2P] `xyz`, `feats`, `labels` and the
+    membership masks `mix1` / `mix2`."""
+    in1_s = (band_parity(sup["xyz"], num_areas) == 0) & sup["valid"]
+    in1_u = (band_parity(unsup["xyz"], num_areas) == 1) & unsup["valid"]
+    valid = torch.cat([sup["valid"], unsup["valid"]])
+    mix1 = torch.cat([in1_s, in1_u])
+    return {"xyz": torch.cat([sup["xyz"], unsup["xyz"]]),
+            "feats": torch.cat([sup["feats"], unsup["feats"]]),
+            "labels": torch.cat([sup["labels"], unsup["labels"]]),
+            "mix1": mix1, "mix2": valid & ~mix1}
+
+
+def lasermix_batch(sup_points: dict, unsup_points: dict, pseudo_labels: torch.Tensor,
+                   num_areas: torch.Tensor):
+    """Mix S scan pairs into 2S mixed scans: mix1 of every pair, then mix2.
+
+    sup_points / unsup_points: dicts of [S, P, ...] tensors (`xyz`, `feats`,
+    `mapped_labels`, `valid`); pseudo_labels [S, P] for the unsup scans.
+    Returns (xyz [2S, 2P, 3], feats [2S, 2P, C], labels [2S, 2P],
+    valid [2S, 2P])."""
+    mixed = [lasermix_pair(
+        {"xyz": sup_points["xyz"][i], "feats": sup_points["feats"][i],
+         "labels": sup_points["mapped_labels"][i], "valid": sup_points["valid"][i]},
+        {"xyz": unsup_points["xyz"][i], "feats": unsup_points["feats"][i],
+         "labels": pseudo_labels[i], "valid": unsup_points["valid"][i]}, num_areas)
+        for i in range(sup_points["xyz"].shape[0])]
+    xyz = torch.stack([m["xyz"] for m in mixed] * 2)
+    feats = torch.stack([m["feats"] for m in mixed] * 2)
+    labels = torch.stack([m["labels"] for m in mixed] * 2)
+    valid = torch.stack([m["mix1"] for m in mixed] + [m["mix2"] for m in mixed])
+    return xyz, feats, labels, valid
 
 
 def lasermix_voxel_groups(coords: torch.Tensor, is_sup: torch.Tensor, num_sup: int,

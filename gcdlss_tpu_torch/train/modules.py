@@ -22,8 +22,8 @@ import torch
 from ..data import PrefetchLoader, collate_batch
 from ..eval.metrics import discovery_iou
 from ..models.minkunet import assemble_novel_logits
-from .common import (inv_label_lut, plan_and_gather, point_batch_to_device, resolve_device,
-                     voxel_batch_to_device)
+from .common import (StepClock, inv_label_lut, plan_and_gather, point_batch_to_device,
+                     resolve_device, voxel_batch_to_device)
 from .discover import (DiscoverConfig, create_discover_state, discover_eval_step,
                        discover_train_step)
 
@@ -31,10 +31,12 @@ from .discover import (DiscoverConfig, create_discover_state, discover_eval_step
 class ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive:
     """Stage-2 generalized class discovery (mean teacher + LaserMix + NCC).
 
-    `step_log` keeps one record per train step: every metric of the step
-    (loss terms, tau, `n_cand`, `n_rel`, `has_novel`, `plan_overflow`, ...)
-    as a float and the step's wall seconds (it ends by reading the metrics,
-    which waits for the card)."""
+    Every recipe of the discovery family runs through it, its variant in the
+    config (`train.discover`). `step_log` keeps one record per train step:
+    every metric of the step (loss terms, tau, `n_cand`, `n_rel`,
+    `has_novel`, `plan_overflow`, ...) as a float, the step's wall seconds
+    (it ends by reading the metrics, which waits for the card) and its
+    device time `step_ms` (two CUDA events; the host clock on the CPU)."""
 
     def __init__(self, cfg: DiscoverConfig, label_mapping: dict, label_mapping_inv: dict,
                  pretrained: dict | None = None, seed: int = 1234, device="cuda",
@@ -74,11 +76,18 @@ class ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive:
 
     def train_step(self, sup_batch, unsup_batch) -> dict:
         t0 = time.perf_counter()
+        clock = StepClock(self.device)
+        clock.start()
+        dev = self.device
         self.state, metrics = discover_train_step(
-            self.state, voxel_batch_to_device(sup_batch["voxel"], self.device),
-            voxel_batch_to_device(unsup_batch["voxel"], self.device), self.cfg)
+            self.state, voxel_batch_to_device(sup_batch["voxel"], dev),
+            voxel_batch_to_device(unsup_batch["voxel"], dev), self.cfg,
+            sup_pb=point_batch_to_device(sup_batch["points"], dev),
+            unsup_pb=point_batch_to_device(unsup_batch["points"], dev))
+        clock.stop()
         out = {k: float(v) for k, v in metrics.items()}
-        self.step_log.append({**out, "seconds": time.perf_counter() - t0})
+        self.step_log.append({**out, "seconds": time.perf_counter() - t0,
+                              "step_ms": clock.ms()[0]})
         return out
 
     def validate(self, val_dataset, num_workers: int = 4, point_cap: int | None = None) -> dict:

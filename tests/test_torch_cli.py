@@ -379,12 +379,38 @@ def test_handoff_stage15_stage2_and_test(tree, stage1):
     assert tested["result"]["mIoU"] == s2["history"][-1]["valid/mIoU"]
 
 
+STAGE2_RECIPES = ("ExpMergeDiscover_LaserMix_MeanTeacher",
+                  "ExpMergeDiscover_LaserMix_MeanTeacher_HybridAdaptive",
+                  "ExpMergeDiscover_LaserMix_MeanTeacher_Oracle_threshold",
+                  "ExpMergeDiscover_LaserMix_MeanTeacher_MSP_threshold",
+                  "ExpMergeDiscover_PolarMix_MeanTeacher", "ExpMixRealMeanTeacherDiscover",
+                  "ExpMergeDiscover_LaserMix_LiON_MeanTeacher")
+
+
+def test_stage2_recipes_train_through_the_cli(tree, stage1):
+    """Each Stage-2 recipe the registry adds to the default one trains an
+    epoch through `main`, warm-started from Stage 1's handoff: its config
+    is the recipe's, every logged metric is finite, and the epoch's
+    checkpoint is written."""
+    for name in STAGE2_RECIPES:
+        exp = f"s2-{name}"
+        run = cli.main(_argv(tree, exp, "--module", name, "--batch_size", "4", "--voxel_cap",
+                             "4096", "--pretrained", str(tree / "ck" / "s1"), "--epochs", "1"))
+        module = run["module"]
+        for k, v in cli.resolve_discover_overrides(name, "SemanticKITTI").items():
+            assert getattr(module.cfg, k) == v, (name, k)
+        assert len(module.step_log) == 1, name
+        bad = [k for k, v in module.step_log[0].items() if not np.isfinite(v)]
+        assert not bad and np.isfinite(run["history"][-1]["valid/mIoU"]), (name, bad)
+        assert tck.CheckpointManager(str(tree / "ck" / exp)).all_steps() == [1], name
+
+
 @pytest.mark.parametrize("extra", [
     ("--module", "ExpDiscover"),
     ("--module", "ExpPretrain", "--arch", "Cylinder3D"),
-    ("--module", "ExpMergeDiscover_LaserMix_MeanTeacher", "--batch_size", "4"),
+    ("--module", "ExpClusterFineTuning", "--batch_size", "4"),
     ("--module", "ExpMixExtraTest"),
-], ids=["nops", "cylinder3d", "fixed_prob", "subdivide"])
+], ids=["nops", "cylinder3d", "cluster", "subdivide"])
 def test_unported_recipes_raise_naming_roadmap(tree, extra):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [467]"):
         cli.main(_argv(tree, "refused", *extra))

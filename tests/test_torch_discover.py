@@ -208,18 +208,30 @@ def test_discovery_iou_matches_jax():
 
 
 def test_variants_not_ported_raise():
+    """Every Stage-2 variant of the registry builds and passes `check_config`
+    (the seven recipes' overrides and the point-mode mixed plan); a value
+    outside a field's set, and `plan_kernel` 0 or 3, still raise."""
+    from gcdlss_tpu_torch.main import resolve_discover_overrides
+    from gcdlss_tpu_torch.train.registry import MODULE_REGISTRY
+
     base = dict(num_labeled_classes=17, num_unlabeled_classes=2, num_classes=19,
                 unknown_label=17, voxel_caps=CAPS, sup_voxel_cap=SUP_CAP, mix_voxel_caps=CAPS,
                 num_sup_scans=2, point_cap=POINT_CAP)
-    for kw in (dict(threshold_mode="fixed_prob"), dict(assigner="sinkhorn"),
-               dict(mix_mode="feature"), dict(mix_plan_mode="point"), dict(use_lion=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            td.make_model(td.DiscoverConfig(**base, **kw))
+    recipes = [name for name, (stage, _) in MODULE_REGISTRY.items() if stage == "discover"]
+    assert len(recipes) == 8
+    configs = [resolve_discover_overrides(name, "SemanticKITTI") for name in recipes]
+    configs.append({**configs[0], "mix_plan_mode": "point"})
+    for kw in configs:
+        cfg = td.DiscoverConfig(**base, **kw)
+        td.check_config(cfg)
+        assert isinstance(td.make_model(cfg), tmk.MinkUNetRC)
     # remat is ported: the model builds with its blocks recomputed in backward
     assert td.make_model(td.DiscoverConfig(**base, remat=True)).encoder.block1.remat
-    for bad in (0, 3):
+    for bad in (dict(threshold_mode="logit"), dict(assigner="hungarian"),
+                dict(mix_mode="polarmix"), dict(mix_plan_mode="points"), dict(use_lion=2),
+                dict(plan_kernel=0), dict(plan_kernel=3)):
         with pytest.raises(ValueError):
-            td.check_config(td.DiscoverConfig(**base, plan_kernel=bad))
+            td.check_config(td.DiscoverConfig(**base, **bad))
 
 
 def test_warm_start_from_stage1():

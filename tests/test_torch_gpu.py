@@ -28,6 +28,7 @@ from gcdlss_tpu_torch.utils.adversarial import (GATHER_SUM_CASES, ONEHOT_CASES, 
 
 pytestmark = pytest.mark.gpu
 CAPS = (4096, 2048, 1024, 512, 256)
+NCC_SHIFT = 8.0  # NCC logits far above every candidate threshold
 
 
 @pytest.fixture(scope="module")
@@ -582,3 +583,90 @@ def test_f16_convs_still_raise(plan):
     w = torch.zeros(27, 8, 8, device=valid.device, dtype=torch.float16)
     with pytest.raises(TypeError):
         subm_conv(x, nbr, w)
+
+
+def test_discover_variants_match_the_cpu(monkeypatch):
+    """One Stage-2 step of each of the eight discovery configs (the seven
+    recipes beside the default one, and the default one with the point-mode
+    mixed plan; MinkUNet14, f32) on the card (kernels) and on the CPU (plain
+    versions) from the same weights with the same draws: each loss term
+    within chip_smoke's card-vs-CPU tolerance, the card's finite.
+
+    An f32 model's convs round x and W to bf16 on the card, so its logits
+    would differ from the f32 CPU's by ~3e-3; the candidate thresholds and
+    the k-means assignments turn such a difference into other candidates and
+    clusters, and the novel terms then move by 5-15%. So the CPU's plain
+    forward conv here rounds its operands to bf16 as the card does (f32
+    sums on both sides), and the NCC heads' bias is raised by NCC_SHIFT on
+    both sides, so that every unlabeled voxel passes every threshold rule
+    and both sides mine the same `cand_cap` candidates. k-means runs no
+    Lloyd round (`kmeans_iters=0`: each candidate goes to its nearest
+    initial row), as its rounds turn a last-place difference of a feature
+    into another cluster; the smoke runs the full 15 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import REF_TOL
+    from gcdlss_tpu_torch.main import resolve_discover_overrides
+    from gcdlss_tpu_torch.ops import fused_conv
+    from gcdlss_tpu_torch.train import discover as td
+
+    def card_rounding(x, nbr, w, out_dtype=torch.float32):
+        return plain.gather_conv(x.bfloat16().float(), nbr, w.bfloat16().float(), out_dtype)
+
+    monkeypatch.setattr(fused_conv, "gather_conv", card_rounding)
+    caps = (4096, 4096, 2048, 1024, 512)
+    rng = np.random.default_rng(11)
+    sides = [_finetune_sides(rng, caps[0] // 2, 2), _finetune_sides(rng, caps[0] // 2, 2)]
+    points = []
+    for side in sides:  # one point a voxel, at its center
+        pts = (side["coords"][:, 1:].astype(np.float32) + 0.5) * 0.05
+        xyz = np.zeros((2, caps[0] // 2, 3), np.float32)
+        rows = np.zeros((2, caps[0] // 2), np.int32) + caps[0] // 2
+        valid = np.zeros((2, caps[0] // 2), bool)
+        for b in range(2):
+            sel = np.flatnonzero(side["valid"] & (side["coords"][:, 0] == b))
+            xyz[b, :len(sel)], rows[b, :len(sel)], valid[b, :len(sel)] = pts[sel], sel, True
+        feats = np.where(valid[..., None], side["feats"][np.minimum(rows, caps[0] // 2 - 1)], 0)
+        labels = np.where(valid, side["labels"][np.minimum(rows, caps[0] // 2 - 1)], -1)
+        points.append({"xyz": xyz, "feats": feats.astype(np.float32), "labels": labels,
+                       "mapped_labels": labels, "valid": valid, "voxel_row": rows})
+    names = ["ExpMergeDiscover_LaserMix_MeanTeacher",
+             "ExpMergeDiscover_LaserMix_MeanTeacher_HybridAdaptive",
+             "ExpMergeDiscover_LaserMix_MeanTeacher_Oracle_threshold",
+             "ExpMergeDiscover_LaserMix_MeanTeacher_MSP_threshold",
+             "ExpMergeDiscover_PolarMix_MeanTeacher", "ExpMixRealMeanTeacherDiscover",
+             "ExpMergeDiscover_LaserMix_LiON_MeanTeacher", None]
+    failures = []
+    for name in names:
+        overrides = resolve_discover_overrides(
+            name or "ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive", "SemanticKITTI")
+        if name is None:
+            overrides["mix_plan_mode"] = "point"
+        cfg = td.DiscoverConfig(num_labeled_classes=17, num_unlabeled_classes=2,
+                                num_classes=19, unknown_label=17, voxel_caps=caps,
+                                sup_voxel_cap=caps[0] // 2, mix_voxel_caps=caps,
+                                num_sup_scans=2, point_cap=caps[0] // 2, arch="MinkUNet14",
+                                planes=(16, 16, 32, 32, 32, 16, 16, 16), feat_dim=16,
+                                cand_cap=512, queue_slots=4, queue_per_slot=128,
+                                kmeans_iters=0,
+                                use_scheduler=False, **overrides)
+        draws = td.draw_step_randoms(td.create_discover_state(0, cfg, device="cpu"), cfg)
+        metrics = {}
+        for dev in ("cpu", "cuda"):
+            state = td.create_discover_state(0, cfg, device=dev)
+            with torch.no_grad():
+                for model in (state.student, state.teacher):
+                    model.encoder.final2.bias.add_(NCC_SHIFT)
+            vbs = [{k: torch.as_tensor(v, device=dev) for k, v in s.items()} for s in sides]
+            pbs = [{k: torch.as_tensor(v, device=dev) for k, v in p.items()} for p in points]
+            d = {k: (tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev))
+                 for k, v in draws.items()}
+            _, m = td.discover_train_step(state, *vbs, cfg, draws=d, sup_pb=pbs[0],
+                                          unsup_pb=pbs[1])
+            metrics[dev] = {k: float(v) for k, v in m.items()}
+        for k in ("loss", "sup_seg", "mse", "lasermix", "calib", "thr_loss", "novel_unsup",
+                  "novel_sup", "ncc_unsup"):
+            got, ref = metrics["cuda"][k], metrics["cpu"][k]
+            if not (np.isfinite(got) and abs(got - ref) <= REF_TOL * abs(ref) + 1e-6):
+                failures.append((name, k, got, ref))
+    assert not failures, failures
