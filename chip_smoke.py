@@ -53,12 +53,14 @@ Phases, each of which raises on failure:
      through the port's `SemanticKITTIDataset` and `PrefetchLoader`
      (per-scan seeds: the same batches, so the same losses, on every run),
      then `validate` on 2 scans;
-  6b. Stage-1.5 slice: `ExpFineTuning` (3 steps at batch 2, Stage 1's caps)
-     and `ExpMixExtraFineTuning` (3 steps, 2 + 2 scans, Stage 2's caps)
-     warm-started from phase 6's model, `ExpMixCosineFineTuning` (2 steps)
-     from fresh weights, MinkUNet34 in bf16; then `rank_uncertain_scans` over
-     2 scans and `threshold_sweep_test` over the valid scans; finite losses,
-     no plan overflow, a non-empty sweep, K1-K3 launched and K4 not;
+  6b. Stage-1.5 slice: `ExpFineTuning` (3 steps at batch 2, Stage 1's caps),
+     `ExpMixExtraFineTuning` and `ExpClusterFineTuning` (3 steps each, 2 + 2
+     scans, Stage 2's caps; the cluster miner's host time and unknown rows a
+     step) warm-started from phase 6's model, `ExpMixCosineFineTuning` (2
+     steps) from fresh weights, MinkUNet34 in bf16; then
+     `rank_uncertain_scans` over 2 scans, `threshold_sweep_test` over the
+     valid scans and its subdivided form (ExpMixExtraTest); finite losses,
+     no plan overflow, non-empty sweeps, K1-K3 launched and K4 not;
   7. Stage-2 slice: `ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive` at the
      `bench.py` Stage-2 configuration (MinkUNet34, bf16, 2 + 2 scans), 3
      steps with `plan_kernel=2` and 1 with `plan_kernel=1` through its own
@@ -76,6 +78,13 @@ Phases, each of which raises on failure:
   8. remat: two Stage-1 steps of an f32 MinkUNet34 with `remat` off and on
      from the same weights and batch: equal losses and states, each run's
      peak memory and step times;
+  8b. single-model discovery (`nops_phase`): ExpDiscover,
+     ExpMixDiscoverJoint, ExpMixDiscover and ExpMixDiscoverSwaV at the
+     Stage-2 configuration, 3 steps each through a fresh `train.nops.ExpNops`
+     (device and host step times, peak memory, candidates, SwaV's
+     cross-view matches, the queue; finite losses, no plan overflow), then
+     one step of each on a small input on the card against the CPU
+     (`nops_card_vs_cpu`);
   9. CLI: the port's CLI (`python -m gcdlss_tpu_torch.main`, called as
      `main(argv)` in this process) as a user runs it, f32 (its only dtype),
      on one synthetic tree of 80k-point scans at 0.05 m (`cli_runs`): (a)
@@ -85,9 +94,19 @@ Phases, each of which raises on failure:
      (e) `--test` on (d)'s saved state, whose mIoU must equal (d)'s last
      validation; (f) Stage 1 at MinkUNet50; (g) the Sinkhorn recipe, (h)
      LiON and (j) PolarMix-MT, one epoch each from (a)'s handoff, and (i)
-     `--test` on (h)'s state, its mIoU equal to (h)'s. Every run: finite losses, no
+     `--test` on (h)'s state, its mIoU equal to (h)'s; (k) ExpDiscover and
+     (l) ExpMixDiscoverSwaV from (a)'s handoff, (m) (k) resumed at epoch 1;
+     (n) Stage 2 at MinkUNet50 from (f)'s handoff (batch 2, cap0 F6_CAP0);
+     (o) `ExpClusterFineTuning` from (a)'s handoff and (p) ExpMixExtraTest's
+     subdivided sweep on (o)'s state. Every run: finite losses, no
      plan (train or eval) dropping a voxel, K1 and K3 launched (K2 in every
      training run), K4 not; step times, peak memory and the card printed.
+     Then the offline clustering evaluation on (d)'s saved state, card
+     against CPU (`clustering_eval_check`);
+ 10. discovery quality (`discovery_phase`): `tools/discovery_quality.py` on
+     the card, Stage 1 (12 epochs) then the default Stage-2 recipe (15) on
+     the learnable synthetic tree through the CLI; fails unless the last
+     mIoU_new reaches 0.10 and the best mIoU_old exceeds the first.
   Phase 2 also holds K1/K2 at MinkUNet50's pool-conv widths (downs 128,
   256, 512 channels; ups 1,024 -> 256, 1,024 -> 128, 512 -> 96, 384 -> 96)
   on the Stage-1 plan, and phase 4 runs the reference forward in bf16 and
@@ -95,7 +114,8 @@ Phases, each of which raises on failure:
   f32 sums). Each phase's wall time is printed.
 
 Each path (the tool's `main`, the Stage-1 slice, each run of the Stage-1.5
-slice, the Stage-2 slice, each Stage-2 variant, each CLI run) sets every kernel's launch count to
+slice, the Stage-2 slice, each Stage-2 variant, each single-model recipe,
+each CLI run, the discovery-quality run) sets every kernel's launch count to
 0 just before it and reads it just after: each kernel of its path must have
 launched.
 Every kernel row carries its bound, the least time the card could take for
@@ -915,17 +935,21 @@ S15_RUNS = (  # (registry recipe, voxel caps, scans a step, warm start, steps)
     ("ExpFineTuning", CAP0, BATCH, True, 3),
     ("ExpMixExtraFineTuning", S2_CAP0, 2 * BATCH, True, 3),
     ("ExpMixCosineFineTuning", CAP0, BATCH, False, 2),  # a linear `final` fits no cosine head
+    ("ExpClusterFineTuning", S2_CAP0, 2 * BATCH, True, 3),
 )
 
 
 def stage15_phase(device, card: str, pretrained: dict) -> dict:
     """Stage 1.5 as a user runs it, on the port's own datasets and loaders:
     `ExpFineTuning` and `ExpMixExtraFineTuning` warm-started from the Stage-1
-    phase's model, `ExpMixCosineFineTuning` from fresh weights (S15_RUNS),
-    then `rank_uncertain_scans` over 2 unlabeled scans with the fine-tuned
-    model and `threshold_sweep_test` (ExpRCTest) over the valid scans with the
-    Extra-tuned one. Every plan's overflow is read on the same batches outside
-    the runs. Returns the kernels' launches per run and in all."""
+    phase's model, `ExpMixCosineFineTuning` from fresh weights and
+    `ExpClusterFineTuning` warm-started (S15_RUNS; its host miner timed and
+    its unknown rows counted a step), then `rank_uncertain_scans` over 2
+    unlabeled scans with the fine-tuned model, `threshold_sweep_test`
+    (ExpRCTest) over the valid scans with the Extra-tuned one and the
+    subdivided sweep (ExpMixExtraTest, `subdivide=True`) with the
+    cluster-tuned one. Every plan's overflow is read on the same batches
+    outside the runs. Returns the kernels' launches per run and in all."""
     import torch
 
     from gcdlss_tpu_torch.data import SemanticKITTIDataset
@@ -935,9 +959,10 @@ def stage15_phase(device, card: str, pretrained: dict) -> dict:
     from gcdlss_tpu_torch.ops.plan import build_unet_plan, plan_capacity_overflow
     from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
     from gcdlss_tpu_torch.train.common import default_caps, voxel_batch_to_device
+    from gcdlss_tpu_torch.train import finetune
     from gcdlss_tpu_torch.train.discover import _combine_batches
     from gcdlss_tpu_torch.train.finetune import ExpFineTuning
-    from gcdlss_tpu_torch.train.registry import finetune_config
+    from gcdlss_tpu_torch.train.registry import finetune_config, subdivide_novel
     from gcdlss_tpu_torch.train.uncertainty import rank_uncertain_scans
 
     kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
@@ -947,6 +972,14 @@ def stage15_phase(device, card: str, pretrained: dict) -> dict:
                   planes=DEFAULT_PLANES, dtype="bfloat16", steps_per_epoch=3, epochs=50)
     common = dict(voxel_size=VOXEL_SIZE, label_mapping=mapping, unknown_labels=unknown)
     launches, modules = {}, {}
+    miner = []  # (host ms, rows marked unknown) of each call of the cluster miner
+    mine = finetune._cluster_unknown_mask_host
+
+    def timed_miner(*args):
+        t0 = time.perf_counter()
+        mask = mine(*args)
+        miner.append((round((time.perf_counter() - t0) * 1e3, 1), int(mask.sum())))
+        return mask
 
     def counted(tag: str, fn):
         torch.cuda.synchronize()
@@ -976,8 +1009,12 @@ def stage15_phase(device, card: str, pretrained: dict) -> dict:
             module = ExpFineTuning(cfg, pretrained if warm else None, seed=0, device=device)
             sides = ((dataset(2 * steps, True), dataset(2 * steps, False)) if module.extra
                      else (dataset(scans * steps, True),))
-            _, peak = counted(name, lambda: module.train_epoch(
-                *module.make_loaders(*sides, batch_size=scans, num_workers=2)))
+            finetune._cluster_unknown_mask_host = timed_miner
+            try:
+                _, peak = counted(name, lambda: module.train_epoch(
+                    *module.make_loaders(*sides, batch_size=scans, num_workers=2)))
+            finally:
+                finetune._cluster_unknown_mask_host = mine
             # the same batches again (per-scan seeds), for the plans' overflow
             overflow = []
             for batch in zip(*module.make_loaders(*sides, batch_size=scans, num_workers=2)):
@@ -1002,6 +1039,11 @@ def stage15_phase(device, card: str, pretrained: dict) -> dict:
                 raise AssertionError(f"stage1.5 {name}: non-finite (step, term): {bad}")
             if any(overflow):
                 raise AssertionError(f"stage1.5 {name}: a plan dropped voxels: {overflow}")
+            if cfg.extra_mode == "cluster":
+                log(f"stage1.5 {name}: host miner (ms, rows marked unknown) a step {miner} "
+                    f"({card})")
+                if len(miner) != steps:
+                    raise AssertionError(f"stage1.5 {name}: the miner ran {len(miner)} times")
             modules[name] = module
 
         caps = default_caps(CAP0)
@@ -1022,10 +1064,19 @@ def stage15_phase(device, card: str, pretrained: dict) -> dict:
         sweep, _ = counted("sweep", lambda: threshold_sweep_test(
             modules["ExpMixExtraFineTuning"].state.model, val_ds, tcfg, inv, known, novel,
             num_workers=2, point_cap=POINTS_PER_SCAN))
-    for t, r in sweep.items():
-        log(f"stage1.5 sweep threshold {t}: mIoU {r['mIoU']:.6f} old {r['mIoU_old']:.6f} "
-            f"new {r['mIoU_new']:.6f} points {int(r['conf'].sum())}")
-    if not all(r["conf"].sum() > 0 for r in sweep.values()):
+        _, xcfg = finetune_config("ExpMixExtraTest", voxel_caps=caps, batch_size=BATCH, **fields)
+        t0 = time.perf_counter()
+        split, _ = counted("sweep_subdivide", lambda: threshold_sweep_test(
+            modules["ExpClusterFineTuning"].state.model, val_ds, xcfg, inv, known, novel,
+            subdivide=subdivide_novel("ExpMixExtraTest"), num_workers=2,
+            point_cap=POINTS_PER_SCAN))
+        split_s = time.perf_counter() - t0
+    for tag, res in (("sweep", sweep), ("sweep subdivided", split)):
+        for t, r in res.items():
+            log(f"stage1.5 {tag} threshold {t}: mIoU {r['mIoU']:.6f} old {r['mIoU_old']:.6f} "
+                f"new {r['mIoU_new']:.6f} points {int(r['conf'].sum())}")
+    log(f"stage1.5 sweep subdivided: {split_s:.1f} s wall ({card})")
+    if not all(r["conf"].sum() > 0 for res in (sweep, split) for r in res.values()):
         raise AssertionError("stage1.5: an empty sweep confusion matrix")
     launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
     log(f"stage1.5: launches {launches}")
@@ -1422,6 +1473,211 @@ def stage2_variants_phase(device, card: str) -> dict:
     return launches
 
 
+NOPS_RECIPES = ("ExpDiscover", "ExpMixDiscoverJoint", "ExpMixDiscover", "ExpMixDiscoverSwaV")
+NOPS_LOSS_TERMS = {"nops": ("loss", "sup_seg", "calib", "novel_unsup", "unsup_mix", "entropy"),
+                   "nops_swav": ("loss", "sup_seg", "calib", "swav")}
+NCC_SHIFT = 8.0  # NCC logits far above every candidate threshold (the small card-vs-CPU check)
+# with no Lloyd round each candidate takes its nearest initial k-means row; a
+# candidate within summation-order rounding of two rows' distances may take
+# the other on the card (1 of 187 reliable rows on SwaV's second view, NVIDIA
+# H100 80GB HBM3): the reliable count within this share of the CPU's
+REL_COUNT_TOL = 1e-2
+
+
+def nops_phase(device, card: str) -> dict:
+    """The single-model discovery recipes as a user runs them
+    (`train.nops.ExpNops`), at the `bench.py` Stage-2 configuration
+    (MinkUNet34, bf16, 2 + 2 scans of 80k points at 0.05 m, cap0 276,480,
+    `cand_cap` 4096): for each of NOPS_RECIPES a fresh module's `train_epoch`
+    over 3 steps (SwaV: 3 step pairs of two views), the kernels' counts set
+    to 0 before and read after. Per step its device time (CUDA events) and
+    host time (the step's call until the card is done), peak memory,
+    candidates, reliable ones, `has_novel` (SwaV also its cross-view
+    matches). Fails on a non-finite loss, a plan dropping a voxel, a queue
+    that did not take one row for each step whose novel branch fired, SwaV
+    matching no candidate across its views, or a kernel of the path not
+    launched. Then `nops_card_vs_cpu`. Returns the launches per recipe and
+    in all."""
+    import torch
+
+    from gcdlss_tpu_torch.data import SemanticKITTIDataset
+    from gcdlss_tpu_torch.models.minkunet import DEFAULT_PLANES
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+    from gcdlss_tpu_torch.train import nops
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.registry import nops_config
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    caps = default_caps(S2_CAP0)
+    unknown, mapping, inv, unk = label_space()
+    fields = dict(num_labeled_classes=17, num_unlabeled_classes=2, num_classes=19,
+                  unknown_label=unk, arch="MinkUNet34", planes=DEFAULT_PLANES,
+                  dtype="bfloat16", cand_cap=4096, steps_per_epoch=1000)
+    common = dict(voxel_size=VOXEL_SIZE, downsampling=POINTS_PER_SCAN, augment=True,
+                  label_mapping=mapping, unknown_labels=unknown)
+    launches, rows = {}, {}
+    host = []
+    steps_of = {"nops": nops.nops_train_step, "nops_swav": nops.swav_train_step}
+
+    def timed(step):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = step(*args, **kw)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = Path(tmp)
+        write_kitti_tree(root, np.random.default_rng(5), 6 * BATCH, 0)
+        split = np.arange(3 * BATCH)
+        module = None
+        for name in NOPS_RECIPES:
+            stage, cfg = nops_config(name, voxel_caps=caps, batch_size=2 * BATCH, **fields)
+            swav = stage == "nops_swav"
+            lab = SemanticKITTIDataset(str(root), "train", split_indices=split, labeled=True,
+                                       resize_aug=not swav, seed=0, **common)
+            unlab = SemanticKITTIDataset(str(root), "train", split_indices=split,
+                                         labeled=False, seed=1, **common)
+            del module
+            torch.cuda.empty_cache()
+            module = nops.ExpNops(cfg, seed=0, device=device, swav=swav)
+            loaders = module.make_loaders(lab, unlab, num_workers=2)
+            host.clear()
+            orig = steps_of[stage]
+            setattr(nops, orig.__name__, timed(orig))
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for fn in kernels.values():
+                    fn.launches = 0
+                module.train_epoch(*loaders)
+                torch.cuda.synchronize()
+                launches[name] = {k: fn.launches for k, fn in kernels.items()}
+            finally:
+                setattr(nops, orig.__name__, orig)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = module.step_log
+            n = len(steps)
+            terms = NOPS_LOSS_TERMS[stage]
+            finite = all(np.isfinite(st[k]) for st in steps for k in terms)
+            fired = sum(int(st["has_novel"]) for st in steps)
+            queued = int(module.state.queue.counts.sum())
+            rows[name] = dict(
+                stage=stage, step_ms=[round(st["step_ms"], 1) for st in steps],
+                host_ms=[round(t, 1) for t in host], peak_gib=round(peak, 3),
+                n_cand=[int(st["n_cand"]) for st in steps], n_rel=[int(st["n_rel"]) for st in steps],
+                has_novel=[int(st["has_novel"]) for st in steps],
+                n_match=[int(st.get("n_match", -1)) for st in steps],
+                plan_overflow=[int(st["plan_overflow"]) for st in steps], queue_rows=queued,
+                launches_a_step={k: round(v / max(n, 1), 2) for k, v in launches[name].items()},
+                launches=launches[name], finite=finite,
+                **{k: [round(st[k], 6) for st in steps] for k in terms})
+            log(f"nops {name} ({card}): {json.dumps(rows[name])}")
+            if n != 3 or not finite:
+                raise AssertionError(f"nops {name}: {n} steps, finite {finite}")
+            if any(st["plan_overflow"] for st in steps):
+                raise AssertionError(f"nops {name}: a plan dropped voxels")
+            if queued != min(fired, cfg.queue_slots):
+                raise AssertionError(f"nops {name}: the queue holds {queued} rows after {fired} "
+                                     "steps whose novel branch fired")
+            if swav and not sum(rows[name]["n_match"]) > 0:
+                raise AssertionError(f"nops {name}: no candidate matched across the two views")
+            if not all(launches[name][k] > 0 for k in ("K1", "K2", "K3")) or launches[name]["K4"]:
+                raise AssertionError(f"nops {name}: launches {launches[name]}")
+        del module
+        torch.cuda.empty_cache()
+    nops_card_vs_cpu(device, card)
+    launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
+    log(f"nops: launches {launches}")
+    return launches
+
+
+def nops_card_vs_cpu(device, card: str) -> None:
+    """One step of each single-model recipe (MinkUNet14, f32, cap0 4,096) on
+    the card (kernels) and on the CPU (plain versions) from the same weights
+    with the same draws: every loss part within REF_TOL (relative) of the
+    CPU's, the candidates and `has_novel` equal, the reliable candidates
+    within REL_COUNT_TOL. As `tests/test_torch_gpu.py`'s Stage-2 check
+    does, the CPU's plain forward conv rounds its operands to bf16 as the
+    card does, the NCC heads' bias is raised by NCC_SHIFT on both sides (so
+    that every unlabeled voxel passes the threshold and both sides mine the
+    same candidates) and k-means runs no Lloyd round."""
+    import torch
+
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops import fused_conv
+    from gcdlss_tpu_torch.train import nops
+    from gcdlss_tpu_torch.train.registry import nops_config
+
+    caps = (4096, 4096, 2048, 1024, 512)
+    rng = np.random.default_rng(11)
+    sides = []
+    for _ in range(2):
+        pts = rng.integers(-20, 20, size=(2 * caps[0], 3))
+        b = rng.integers(0, 2, size=(2 * caps[0], 1))
+        c = np.unique(np.concatenate([b, pts], 1), axis=0)[: int(caps[0] // 2 * 0.9)]
+        coords = np.zeros((caps[0] // 2, 4), np.int32)
+        coords[: len(c)] = c
+        labels = rng.integers(0, 18, caps[0] // 2).astype(np.int32)
+        sides.append({"coords": coords, "labels": labels, "mapped_labels": labels,
+                      "feats": rng.uniform(0, 1, (caps[0] // 2, 1)).astype(np.float32),
+                      "valid": np.arange(caps[0] // 2) < len(c),
+                      "point_ids": rng.permutation(caps[0] // 2).astype(np.int32)})
+    views = sides + [dict(s, coords=s["coords"] + np.array([0, 1, 0, 0], np.int32),
+                          feats=rng.uniform(0, 1, s["feats"].shape).astype(np.float32))
+                     for s in sides]
+
+    def card_rounding(x, nbr, w, out_dtype=torch.float32):
+        return plain.gather_conv(x.bfloat16().float(), nbr, w.bfloat16().float(), out_dtype)
+
+    orig = fused_conv.gather_conv
+    failures, report = [], {}
+    for name in NOPS_RECIPES:
+        stage, cfg = nops_config(name, voxel_caps=caps, batch_size=4, num_labeled_classes=17,
+                                 num_unlabeled_classes=2, num_classes=19, unknown_label=17,
+                                 arch="MinkUNet14", planes=(16, 16, 32, 32, 32, 16, 16, 16),
+                                 feat_dim=16, cand_cap=512, queue_slots=4, kmeans_iters=0,
+                                 use_scheduler=False)
+        swav = stage == "nops_swav"
+        step = nops.swav_train_step if swav else nops.nops_train_step
+        draws = nops.draw_step_randoms(nops.create_nops_state(0, cfg, device="cpu"), cfg, swav)
+        metrics = {}
+        for dev in ("cpu", "cuda"):
+            state = nops.create_nops_state(0, cfg, device=dev)
+            with torch.no_grad():
+                state.model.encoder.final2.bias.add_(NCC_SHIFT)
+            batches = [{k: torch.as_tensor(v, device=dev) for k, v in s.items()}
+                       for s in (views if swav else sides)]
+            d = {k: (tuple(x.to(dev) for x in v) if isinstance(v, tuple) else
+                     v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in draws.items()}
+            fused_conv.gather_conv = card_rounding if dev == "cpu" else orig
+            try:
+                _, m = step(state, *batches, cfg, draws=d)
+            finally:
+                fused_conv.gather_conv = orig
+            metrics[dev] = {k: float(v) for k, v in m.items()}
+        report[name] = metrics
+        for k in NOPS_LOSS_TERMS[stage]:
+            got, ref = metrics["cuda"][k], metrics["cpu"][k]
+            if not (np.isfinite(got) and abs(got - ref) <= REF_TOL * abs(ref) + 1e-6):
+                failures.append((name, k, got, ref))
+        for k in ("n_cand", "has_novel"):
+            if metrics["cuda"][k] != metrics["cpu"][k]:
+                failures.append((name, k, metrics["cuda"][k], metrics["cpu"][k]))
+        n_rel = metrics["cuda"]["n_rel"], metrics["cpu"]["n_rel"]
+        if abs(n_rel[0] - n_rel[1]) > REL_COUNT_TOL * n_rel[1]:
+            failures.append((name, "n_rel", *n_rel))
+    log(f"nops card vs CPU (MinkUNet14 f32, cap0 4096; {card}): {json.dumps(report)}")
+    if failures:
+        raise AssertionError(f"nops card vs CPU: {failures}")
+
+
 def remat_phase(device, card: str) -> dict:
     """One Stage-1 step pair (two `pretrain_train_step`s) of an f32
     MinkUNet34 with `remat` off and on, from the same weights and batch (2
@@ -1480,6 +1736,12 @@ def remat_phase(device, card: str) -> dict:
 
 CLI_TREE = (12, 2)  # train and valid scans: 6 labeled (split 1, 50%), 3 steps an epoch
 TEST_RUNS = {"e": "d", "i": "h"}  # a `--test` run -> the training run whose state it reads
+SWEEP_RUNS = {"p": "o"}  # a threshold-sweep run -> the training run whose state it reads
+# Stage 2 at MinkUNet50 (f32): at batch 4 (2 + 2 scans, ~123k voxels a side)
+# cap0 must reach ~250k, where the predicted peak (~91-101 GiB) does not fit
+# the card; at batch 2 (1 + 1 scans) the largest cap0 predicted to fit with a
+# margin (~67 GiB): PERF.md section 5
+F6_CAP0 = 184_320
 
 
 def cli_runs(root: Path) -> list:
@@ -1522,6 +1784,24 @@ def cli_runs(root: Path) -> list:
          + ["--test", "--checkpoint", str(ck / "s2lion")], "Stage 2 LiON --test on (h)'s state"),
         ("j", common + variant("ExpMergeDiscover_PolarMix_MeanTeacher", "s2pm")
          + ["--pretrained", s1, "--epochs", "1"], "Stage 2, PolarMix-MT, from the handoff"),
+        ("k", common + variant("ExpDiscover", "nops") + ["--pretrained", s1, "--epochs", "1"],
+         "ExpDiscover from the handoff"),
+        ("l", common + variant("ExpMixDiscoverSwaV", "swav") + ["--pretrained", s1,
+                                                               "--epochs", "1"],
+         "ExpMixDiscoverSwaV from the handoff"),
+        ("m", common + variant("ExpDiscover", "nops") + ["--pretrained", s1, "--epochs", "2",
+                                                        "--resume_checkpoint", "1"],
+         "ExpDiscover resumed at epoch 1"),
+        ("n", common + ["--module", "ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive",
+                        "--arch", "MinkUNet50", "--batch_size", str(BATCH), "--voxel_cap",
+                        str(F6_CAP0), "--experiment", "s2m50", "--pretrained",
+                        str(ck / "s1m50"), "--epochs", "1"],
+         f"Stage 2 at MinkUNet50 from (f)'s handoff, batch {BATCH}, cap0 {F6_CAP0}"),
+        ("o", common + variant("ExpClusterFineTuning", "s15cl") + ["--pretrained", s1,
+                                                                  "--epochs", "1"],
+         "ExpClusterFineTuning from the handoff"),
+        ("p", common + variant("ExpMixExtraTest", "s15cl") + ["--checkpoint", str(ck / "s15cl")],
+         "ExpMixExtraTest's subdivided sweep on (o)'s state"),
     ]
 
 
@@ -1529,11 +1809,15 @@ def cli_phase(device, card: str) -> dict:
     """The port's CLI as a user runs it (`cli_runs`): on one synthetic
     SemanticKITTI tree, Stage 1 with a checkpoint an epoch and its handoff,
     a resume, Stage 1.5 and Stage 2 warm-started from it, `--test` on Stage
-    2's saved state, Stage 1 at MinkUNet50, and the Sinkhorn, LiON (then
-    `--test`) and PolarMix-MT recipes from the handoff. Each run: finite
-    losses, no plan dropping a voxel, K1 and K3 launched (K2 in every
-    training run), K4 not; each `--test` gives its training run's last
-    mIoU. Returns the launches per run and in all."""
+    2's saved state, Stage 1 at MinkUNet50, the Sinkhorn, LiON (then
+    `--test`) and PolarMix-MT recipes from the handoff, ExpDiscover (then
+    resumed at epoch 1) and ExpMixDiscoverSwaV from it, Stage 2 at
+    MinkUNet50 from (f)'s handoff, ExpClusterFineTuning and ExpMixExtraTest's
+    subdivided sweep on its state. Each run: finite losses, no plan dropping
+    a voxel, K1 and K3 launched (K2 in every training run), K4 not; each
+    `--test` gives its training run's last mIoU; each sweep scores every
+    threshold. Then `clustering_eval_check` on (d)'s saved state. Returns the
+    launches per run and in all."""
     import torch
 
     from gcdlss_tpu_torch import main as cli
@@ -1555,6 +1839,8 @@ def cli_phase(device, card: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             for fn in kernels.values():
                 fn.launches = 0
+            if tag == "n":  # the F6 run: the card's memory as free as the process can make it
+                torch.cuda.empty_cache()
             rec = records[tag] = cli.main(argv)
             torch.cuda.synchronize()
             launches[tag] = {name: fn.launches for name, fn in kernels.items()}
@@ -1575,7 +1861,7 @@ def cli_phase(device, card: str) -> dict:
             log(f"cli ({tag}) {what}: {len(steps)} steps, start epoch {rec['start_epoch']}, "
                 f"{plans} plans dropped {dropped} voxels; peak memory {peak:.3f} GiB ({card}); "
                 f"wall {time.perf_counter() - t0:.1f} s; launches {launches[tag]}")
-            train = tag not in TEST_RUNS
+            train = tag not in TEST_RUNS and tag not in SWEEP_RUNS
             bad = [(i, k) for i, st in enumerate(steps) for k, v in st.items()
                    if isinstance(v, float) and not np.isfinite(v)]
             if train and (not steps or bad):
@@ -1586,13 +1872,29 @@ def cli_phase(device, card: str) -> dict:
             if not all(launches[tag][k] > 0 for k in need) or launches[tag]["K4"]:
                 raise AssertionError(f"cli ({tag}): launches {launches[tag]}, need {need}, no K4")
         ck = root / "ck"
-        saved = {run: sorted(p.name for p in (ck / run).iterdir()) for run in ("s1", "s2")}
+        saved = {run: sorted(p.name for p in (ck / run).iterdir()) for run in ("s1", "s2", "nops")}
+        clustering_eval_check(device, card, records["e"]["module"], root)
     log(f"cli: saved {saved}")
     if saved["s1"] != ["0", "1", "2", "pretrained"]:
         raise AssertionError(f"cli: Stage 1 saved {saved['s1']}, expected epochs 0-2 + pretrained")
     if [h["epoch"] for h in records["a"]["history"]] != [0, 1] or \
             [h["epoch"] for h in records["b"]["history"]] != [2]:
         raise AssertionError("cli: (a) must run epochs 0, 1 and (b) epoch 2 alone")
+    if [h["epoch"] for h in records["m"]["history"]] != [1] or \
+            saved["nops"] != ["0", "1", "pretrained"]:
+        raise AssertionError(f"cli: (m) must resume ExpDiscover at epoch 1 alone; saved "
+                             f"{saved['nops']}")
+    for tag in ("k", "l", "m"):
+        log(f"cli ({tag}): " + " ".join(
+            f"{k} {[int(st[k]) for st in records[tag]['module'].step_log]}"
+            for k in ("n_cand", "n_rel", "has_novel", "n_match")
+            if k in records[tag]["module"].step_log[0]))
+    for sweep, run in SWEEP_RUNS.items():
+        res = records[sweep]["result"]
+        log(f"cli ({sweep}) on ({run})'s state: " + " ".join(
+            f"{t}: {r['mIoU']:.6f}/{r['mIoU_new']:.6f}" for t, r in sorted(res.items())))
+        if len(res) != 7 or not all(r["conf"].sum() > 0 for r in res.values()):
+            raise AssertionError(f"cli ({sweep}): the sweep scored {len(res)} thresholds")
     log(f"cli (d): has_novel {[st['has_novel'] for st in records['d']['module'].step_log]}, "
         f"n_cand {[st['n_cand'] for st in records['d']['module'].step_log]}")
     for test, run in TEST_RUNS.items():
@@ -1603,6 +1905,157 @@ def cli_phase(device, card: str) -> dict:
             raise AssertionError(f"cli: --test on ({run})'s state gives mIoU {tested}, ({run}) "
                                  f"gave {last}")
     launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
+    return launches
+
+
+FEATURE_TOL = REF_TOL  # relative Frobenius error of the card's features against the CPU's
+CMP_POINTS = 20_000  # points of the valid scan whose features the card and the CPU both extract
+# the clustering on the card against the same clustering on the CPU, on the
+# card's features: equal confusion matrices, or (a distance within f32
+# rounding of a tie sends a voxel to the other cluster; each such voxel moves
+# one count between two cells) at most CLUSTER_MOVED_TOL of the voxels in
+# other cells and the mIoU within CLUSTER_MIOU_TOL
+CLUSTER_MOVED_TOL = 1e-3
+CLUSTER_MIOU_TOL = 5e-3
+
+
+def clustering_eval_check(device, card: str, module, root: Path) -> dict:
+    """The offline clustering evaluation (`eval/clustering_eval`) over a
+    saved Stage-2 state (`module`, whose state `--test` restored): the
+    teacher's backbone features of the valid scans extracted on the card
+    (`extract_features`, 2 scans a batch at the Stage-2 caps), and those of
+    the first training scan cut to CMP_POINTS points on the card and on the CPU
+    (plain versions, the forward conv's operands rounded to bf16 as the
+    card's f32 model does; the CPU takes ~49 s for one whole 80k-point
+    scan), within FEATURE_TOL; then `clustering_discovery_eval` with `semi_kmeans` and
+    `sinkhorn` on the card's features, on the card and on the CPU, with the
+    same draws: confusion matrices equal, or within CLUSTER_MOVED_TOL /
+    CLUSTER_MIOU_TOL. Prints each call's host time. Returns the results."""
+    import copy
+
+    import torch
+
+    from gcdlss_tpu_torch.data import PrefetchLoader, SemanticKITTIDataset
+    from gcdlss_tpu_torch.eval.clustering_eval import clustering_discovery_eval, extract_features
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops import fused_conv
+    from gcdlss_tpu_torch.train.common import default_caps, plan_and_gather, voxel_batch_to_device
+
+    unknown, mapping, inv, unk = label_space()
+    cfg = module.cfg
+    val_ds = SemanticKITTIDataset(str(root / "kitti"), "valid", voxel_size=VOXEL_SIZE,
+                                  label_mapping=mapping, unknown_labels=unknown)
+    models = {"cuda": module.state.teacher, "cpu": copy.deepcopy(module.state.teacher).cpu()}
+
+    def forward(dev, caps):
+        @torch.no_grad()
+        def fwd(batch):
+            model = models[dev]
+            model.eval()
+            vb = voxel_batch_to_device(batch["voxel"], dev)
+            plan, feats0, labels0, mapped0 = plan_and_gather(vb, caps)
+            return model(plan, feats0)["feats"], mapped0, labels0, plan.levels[0].valid
+        return fwd
+
+    def card_rounding(x, nbr, w, out_dtype=torch.float32):
+        return plain.gather_conv(x.bfloat16().float(), nbr, w.bfloat16().float(), out_dtype)
+
+    def extract(dev, dataset, scans, caps, max_voxels):
+        loader = PrefetchLoader(dataset, scans, caps[0], shuffle=False, num_workers=2,
+                                drop_last=False)
+        orig = fused_conv.gather_conv
+        fused_conv.gather_conv = card_rounding if dev == "cpu" else orig
+        try:
+            t0 = time.perf_counter()
+            out = extract_features(forward(dev, caps), loader, cfg.feat_dim, max_voxels)
+            log(f"clustering eval: extract_features on {dev}, {scans} scan(s) a batch: "
+                f"{out[0].shape[0]} voxels, {time.perf_counter() - t0:.2f} s")
+            return out
+        finally:
+            fused_conv.gather_conv = orig
+
+    # a random CMP_POINTS-point draw of the first training scan (the same on
+    # both devices: per-scan seeds), rotated and scaled as in training
+    cut = SemanticKITTIDataset(str(root / "kitti"), "train", split_indices=np.arange(1),
+                               labeled=True, voxel_size=VOXEL_SIZE, downsampling=CMP_POINTS,
+                               augment=True, seed=0, label_mapping=mapping,
+                               unknown_labels=unknown)
+    cut_caps = default_caps(22_528)
+    (f1, m1, l1), (fp, mp, lp) = (extract(dev, cut, 1, cut_caps, 1) for dev in ("cuda", "cpu"))
+    feat_err = float(np.linalg.norm(f1 - fp) / max(np.linalg.norm(fp), 1e-12))
+    if not (np.array_equal(m1, mp) and np.array_equal(l1, lp)) or not feat_err <= FEATURE_TOL:
+        raise AssertionError(f"clustering eval: card features off the CPU's by {feat_err:.3e} "
+                             f"(tolerance {FEATURE_TOL}), labels equal {np.array_equal(m1, mp)}")
+    fc, mc, lc = extract("cuda", val_ds, 2, cfg.voxel_caps, 2_000_000)
+    known = [k for k, v in mapping.items() if v != unk]
+    novel = [k for k, v in mapping.items() if v == unk]
+    out = {"feature_err": feat_err}
+    rng = np.random.default_rng(0)
+    n_unknown = int((mc == unk).sum())
+    for method in ("semi_kmeans", "sinkhorn"):
+        # the same draws on both devices: the k-means++ rows after the known
+        # anchors (semi_kmeans), the k-means initial-row scores (sinkhorn)
+        kw = (dict(picks=rng.choice(n_unknown, len(novel), replace=False))
+              if method == "semi_kmeans" else dict(scores=rng.random(n_unknown).astype(np.float32)))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = clustering_discovery_eval(fc, mc, lc, unk, known, novel, 19, inv,
+                                                 method=method, device=dev, **kw)
+            res[dev]["host_s"] = time.perf_counter() - t0
+        moved = int(np.abs(res["cuda"]["conf"] - res["cpu"]["conf"]).sum()) // 2
+        total = int(res["cpu"]["conf"].sum())
+        d_miou = abs(res["cuda"]["mIoU"] - res["cpu"]["mIoU"])
+        out[method] = dict(
+            mIoU={d: res[d]["mIoU"] for d in res}, mIoU_new={d: res[d]["mIoU_new"] for d in res},
+            host_s={d: round(res[d]["host_s"], 3) for d in res}, moved=moved, voxels=total)
+        log(f"clustering eval {method} ({card}): {json.dumps(out[method])}; card features "
+            f"off the CPU's by {feat_err:.3e}")
+        if not (moved == 0 or (moved <= CLUSTER_MOVED_TOL * total
+                               and d_miou <= CLUSTER_MIOU_TOL)):
+            raise AssertionError(f"clustering eval {method}: card and CPU differ: {moved} of "
+                                 f"{total} voxels moved, mIoU {out[method]['mIoU']}")
+    return out
+
+
+def discovery_phase(device, card: str) -> dict:
+    """The port's end-to-end discovery quality (`tools/discovery_quality.py`,
+    the twin of the JAX package's tool): Stage 1 (12 epochs) and the
+    default Stage-2 recipe (15 epochs) through the CLI on the learnable
+    synthetic tree (2 sequences x 24 scans x 4,000 points, 8 valid;
+    MinkUNet14, 0.15 m, cap 4,096, batch 2), on the card; the port's curves
+    beside the JAX package's. Fails unless the tool's `check` passes (last
+    Stage-2 mIoU_new >= 0.10, best mIoU_old above the first) or a kernel of
+    the path was not launched. Returns the kernels' launches."""
+    import torch
+
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+    from gcdlss_tpu_torch.tools import discovery_quality as dq
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = dq.run(str(Path(tmp) / "dq"), device=str(device), num_workers=4)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    jax_curves = json.loads(dq.JAX_CURVES.read_text()) if dq.JAX_CURVES.exists() else {}
+    log(f"discovery quality ({card}; {time.perf_counter() - t0:.1f} s): {json.dumps(result)}")
+    for line in dq.side_by_side(result, jax_curves).splitlines():
+        log(f"discovery quality: {line}")
+    faults = dq.check(result)
+    log(f"discovery quality: launches {launches}; "
+        f"{'discovers' if not faults else 'FAILS: ' + '; '.join(faults)}")
+    if faults:
+        raise AssertionError(f"discovery quality: {faults}")
+    if not all(launches[k] > 0 for k in ("K1", "K2", "K3")) or launches["K4"]:
+        raise AssertionError(f"discovery quality: launches {launches}")
     return launches
 
 
@@ -1654,13 +2107,17 @@ def main() -> int:
     launches_s2 = phase("stage2", stage2_phase, device, gpu_name)
     launches_var = phase("stage2 variants", stage2_variants_phase, device, card)
     peaks_remat = phase("remat", remat_phase, device, card)
+    launches_nops = phase("nops", nops_phase, device, card)
     launches_cli = phase("cli", cli_phase, device, card)
+    launches_dq = phase("discovery quality", discovery_phase, device, card)
     log(f"phases (wall s): {json.dumps({k: round(v, 1) for k, v in wall.items()})}; "
         f"remat peaks (GiB) {peaks_remat}")
     # `launches`: K1-K4 on the Stage-2 path (the training path that runs all
     # four; `launches_stage1` the Stage-1 path, `launches_stage15` the
     # Stage-1.5 phase, `launches_variants` the Stage-2 variants together,
-    # `launches_cli` the CLI's ten runs together), P1-P4 in
+    # `launches_nops` the four single-model recipes together, `launches_cli`
+    # the CLI's sixteen runs together, `launches_quality` the discovery-quality
+    # run), P1-P4 in
     # the tool's main run (their only path; K1's launches there are
     # `launches_parts`)
     for r in rows:
@@ -1668,6 +2125,8 @@ def main() -> int:
         r["launches_stage1"] = launches_s1[r["name"][:2]]
         r["launches_stage15"] = launches_s15["total"][r["name"][:2]]
         r["launches_variants"] = launches_var["total"][r["name"][:2]]
+        r["launches_nops"] = launches_nops["total"][r["name"][:2]]
+        r["launches_quality"] = launches_dq[r["name"][:2]]
         if r["name"][:2] == "K1":
             r["launches_parts"] = launches_parts["K1"]
     for r in part_rows:
@@ -1677,8 +2136,8 @@ def main() -> int:
         r["launches_cli"] = launches_cli["total"][r["name"][:2]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_stage1", "launches_stage15", "launches_variants", "launches_cli",
-             "launches_parts",
+    extra = ("launches_stage1", "launches_stage15", "launches_variants", "launches_nops",
+             "launches_cli", "launches_quality", "launches_parts",
              "bound_measured_ms",
              "bound_dense_ms", "fill",
              "far_entries",

@@ -21,7 +21,10 @@ Two ways to draw a scan's augmentation:
   * `per_scan_seed=True`, the default — scan `i` of epoch `e` draws from a
     generator of its own, seeded by (dataset seed, e, i) through
     `dataset.get(i, rng)`. The batches are then the same on every run and
-    for every worker count. The port's trainers use this mode.
+    for every worker count. The port's trainers use this mode. A loader's
+    `view` v > 0 seeds by (dataset seed, e, i, v): the same scans in the
+    same order (the order depends on the loader's `seed` alone), other
+    augmentation draws, as SwaV's second view needs.
   * `per_scan_seed=False` — every `dataset[i]` draws from the dataset's one
     generator, as the JAX package's loader does. With one worker the batches
     equal that loader's bit for bit (what the parity test asks for); with
@@ -50,20 +53,22 @@ def _mp_init(dataset):
     _WORKER_DS = dataset
 
 
-def _mp_get(i: int, epoch: int | None = None):
-    return _fetch(_WORKER_DS, i, epoch)
+def _mp_get(i: int, epoch: int | None = None, view: int = 0):
+    return _fetch(_WORKER_DS, i, epoch, view)
 
 
-def scan_rng(dataset_seed: int, epoch: int, index: int) -> np.random.Generator:
-    """The generator of scan `index` in epoch `epoch` of a dataset."""
-    return np.random.default_rng([int(dataset_seed), int(epoch), int(index)])
+def scan_rng(dataset_seed: int, epoch: int, index: int, view: int = 0) -> np.random.Generator:
+    """The generator of scan `index` in epoch `epoch` of a dataset (of view
+    `view` > 0 of it: another stream for the same scan)."""
+    key = [int(dataset_seed), int(epoch), int(index)] + ([int(view)] if view else [])
+    return np.random.default_rng(key)
 
 
-def _fetch(dataset, i: int, epoch: int | None):
+def _fetch(dataset, i: int, epoch: int | None, view: int = 0):
     """`dataset[i]`, from the shared generator (`epoch` None) or the scan's own."""
     if epoch is None:
         return dataset[int(i)]
-    return dataset.get(int(i), scan_rng(dataset.seed, epoch, i))
+    return dataset.get(int(i), scan_rng(dataset.seed, epoch, i, view))
 
 
 def _check_per_scan(dataset) -> None:
@@ -115,6 +120,7 @@ class PrefetchLoader:
         drop_last: bool = True,
         per_scan_seed: bool = True,
         epoch: int = 0,
+        view: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -127,10 +133,13 @@ class PrefetchLoader:
         self.drop_last = drop_last
         if per_scan_seed:
             _check_per_scan(dataset)
+        elif view:
+            raise ValueError("a view > 0 needs per_scan_seed")
         self.per_scan_seed = per_scan_seed
         # the pass the next iteration is (part of each scan's seed): `epoch`
         # to begin with, one more for each pass started
         self.epoch = epoch
+        self.view = view
 
     def __len__(self):
         n = len(self.dataset)
@@ -153,7 +162,7 @@ class PrefetchLoader:
                     if stop.is_set():
                         return
                     samples = list(pool.map(
-                        lambda i: _fetch(self.dataset, i, epoch), idxs))
+                        lambda i: _fetch(self.dataset, i, epoch, self.view), idxs))
                     put(collate_batch(samples, self.voxel_cap, self.point_cap))
 
         return _prefetched(produce, self.prefetch)
@@ -183,6 +192,7 @@ class MultiprocessLoader:
         mp_context: str = "spawn",
         per_scan_seed: bool = True,
         epoch: int = 0,
+        view: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -196,8 +206,11 @@ class MultiprocessLoader:
         self.mp_context = mp_context
         if per_scan_seed:
             _check_per_scan(dataset)
+        elif view:
+            raise ValueError("a view > 0 needs per_scan_seed")
         self.per_scan_seed = per_scan_seed
         self.epoch = epoch
+        self.view = view
 
     def __len__(self):
         n = len(self.dataset)
@@ -225,7 +238,7 @@ class MultiprocessLoader:
                 # pipelines sample production across batches
                 futs = []
                 for idxs in batches:
-                    futs.append([pool.submit(_mp_get, i, epoch) for i in idxs])
+                    futs.append([pool.submit(_mp_get, i, epoch, self.view) for i in idxs])
                     # bound the submission window so cancellation works
                     while len(futs) > self.prefetch + 2:
                         if stop.is_set():

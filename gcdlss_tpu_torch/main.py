@@ -11,7 +11,9 @@ with its arguments under the same names and one more, `--device`.
 
 Module names resolve through `train/registry.py`: `pretrain` (Stage 1), the
 Stage-1.5 family (`finetune`, `finetune_extra`, `finetune_test`,
-`uncertainty`) and `discover` (Stage 2). The epoch-loop recipes save a
+`uncertainty`), `discover` (Stage 2) and the single-model discovery family
+(`nops`, `nops_swav`: ExpDiscover, ExpMixDiscoverJoint, ExpMixDiscover,
+ExpMixDiscoverSwaV). The epoch-loop recipes save a
 checkpoint an epoch, keyed by the epoch, and `<checkpoint_dir>/<experiment>/
 pretrained` at the end; `--resume_checkpoint` restarts them at the saved
 epoch + 1, each epoch's loaders seeded by the epoch, so a resumed run draws
@@ -35,7 +37,6 @@ from argparse import ArgumentParser
 import numpy as np
 
 SEED = 1234
-_ITEM6 = "ROADMAP Queue 1 item 6, evaluation and the discovery family"
 _ITEM7 = "ROADMAP Queue 1 item 7, Cylinder3D and the mmdet3d-style stack"
 
 
@@ -171,7 +172,7 @@ def main(argv=None) -> dict:
     from .data import ensure_split_file, get_dataset, load_split_indices
     from .models.minkunet import ARCHS, BLOCKS, DEFAULT_PLANES
     from .train.checkpoint import CheckpointManager, load_pretrained, save_pretrained
-    from .train.registry import resolve_module
+    from .train.registry import resolve_module, subdivide_novel
     from .utils.logging import MetricsLogger
 
     overrides = {k: v for k, v in vars(args).items() if v is not None and k != "device"}
@@ -183,9 +184,6 @@ def main(argv=None) -> dict:
     if cfg.arch not in ARCHS:
         raise ValueError(f"--arch must be one of {sorted(ARCHS)} or Cylinder3D, got {cfg.arch!r}")
     recipe, mod_overrides = resolve_module(cfg.module)
-    if recipe in ("nops", "nops_swav"):
-        raise NotImplementedError(f"{cfg.module}: the {recipe!r} stage is not ported yet "
-                                  f"({_ITEM6})")
 
     space = cfg.label_space()
     print(f"Unknown labels in split {cfg.split}:")
@@ -201,6 +199,8 @@ def main(argv=None) -> dict:
                  min_lr=cfg.min_lr, epochs=cfg.epochs)
     mapping, inv = space["label_mapping"], space["label_mapping_inv"]
     data_kw = dict(label_mapping=mapping, unknown_labels=space["unknown_labels"])
+    # the queue holds backbone features: a bottleneck's are 4x wider
+    feat_dim = DEFAULT_PLANES[7] * BLOCKS[ARCHS[cfg.arch][0]][1]
 
     logger = MetricsLogger(cfg.log_dir, cfg.experiment)
     ds_cls = get_dataset(cfg.dataset, "disjoint")
@@ -288,7 +288,8 @@ def main(argv=None) -> dict:
                 unknown = [k for k, v in mapping.items() if v == space["unknown_label"]]
                 res = record["result"] = threshold_sweep_test(
                     module.state.model, val_ds(), fcfg, inv, known, unknown,
-                    num_workers=cfg.num_workers, point_cap=point_cap)
+                    subdivide=subdivide_novel(cfg.module), num_workers=cfg.num_workers,
+                    point_cap=point_cap)
                 for t, r in sorted(res.items()):
                     print(f"threshold {t}: mIoU={r['mIoU']:.4f} old={r['mIoU_old']:.4f} "
                           f"new={r['mIoU_new']:.4f}")
@@ -318,9 +319,7 @@ def main(argv=None) -> dict:
             from .train.modules import ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive
 
             discover_kw = resolve_discover_overrides(cfg.module, cfg.dataset)
-            kind = ARCHS[cfg.arch][0]
-            # the queue holds backbone features: a bottleneck's are 4x wider
-            discover_kw.setdefault("feat_dim", DEFAULT_PLANES[7] * BLOCKS[kind][1])
+            discover_kw.setdefault("feat_dim", feat_dim)
             nsc = cfg.batch_size // 2
             dcfg = DiscoverConfig(
                 **labels, num_unlabeled_classes=space["num_unlabeled_classes"],
@@ -352,6 +351,37 @@ def main(argv=None) -> dict:
                                                      num_workers=cfg.num_workers)
             for rec in history[-3:]:
                 print(rec)
+        elif recipe in ("nops", "nops_swav"):
+            from .train.nops import ExpNops
+            from .train.registry import nops_config
+
+            nsc = max(cfg.batch_size // 2, 1)
+            _, ncfg = nops_config(
+                cfg.module, voxel_caps=caps, batch_size=cfg.batch_size, **labels,
+                num_unlabeled_classes=space["num_unlabeled_classes"], arch=cfg.arch,
+                feat_dim=feat_dim, lr=cfg.train_lr,
+                steps_per_epoch=max(1, len(split_idx) // nsc), **optim)
+            swav = recipe == "nops_swav"
+            module = record["module"] = ExpNops(ncfg, pretrained, seed=SEED, device=device,
+                                                swav=swav)
+            # 'finetuning'-type labeled scans (REAL aug; not for SwaV) and the
+            # unlabeled complement
+            lab = train_ds(True, SEED, augment=True, resize_aug=not swav)
+            unlab = train_ds(False, SEED + 1, augment=True)
+            module.state, start = resume_from_checkpoint(mgr, module.state,
+                                                         cfg.resume_checkpoint)
+            record["start_epoch"] = start
+            for epoch in range(start, cfg.epochs):
+                m = module.train_epoch(*module.make_loaders(
+                    lab, unlab, num_workers=cfg.num_workers, epoch=epoch,
+                    backend=cfg.loader_backend))
+                avg = m.get("loss", float("nan"))
+                logger.log("train/loss", avg, epoch)
+                record["history"].append({"epoch": epoch,
+                                          **{f"train/{k}": v for k, v in m.items()}})
+                print(f"epoch {epoch}: loss={avg:.4f}")
+                mgr.save(epoch, module.state)
+            save_pretrained(run_dir, module.state.model.state_dict())
         else:
             raise NameError(f"Unknown module {cfg.module}")
     finally:

@@ -12,12 +12,22 @@ Rebuilds of the reference finetune classes (`modules/exp.py`):
     threshold schedules (`:2431-2798`): one forward over sup + unsup scans
     with a 0.1x pseudo-label unsup CE (NCC prob > threshold -> unknown slot);
   * ExpRCExtra (`:975-1112`): the unsup rows whose stored GT is the unknown
-    label, target unknown where the NCC prob passes the threshold.
+    label, target unknown where the NCC prob passes the threshold;
+  * ExpClusterFineTuning (`:1123-1306`): the pseudo-unknown rows mined on the
+    host (`_cluster_unknown_mask_host`: DBSCAN over each unlabeled scan's
+    voxels, k-means over the clusters, a Hungarian matching to the classes).
 
 All are config switches on two steps (`finetune_train_step`,
 `finetune_extra_train_step`); `train/registry.py` maps the names. The k^3
-maps of every plan go through K3. Not ported yet: `extra_mode="cluster"`
-(ExpClusterFineTuning; `check_config` names its ROADMAP item).
+maps of every plan go through K3. The cluster miner reads the device once a
+step (its one host round trip); the plan build waits for nothing.
+
+The JAX package hands its miner the input rows' coordinates beside the plan
+rows' masks and features (`gcdlss_tpu/train/finetune.py:405-409`); plan rows
+are the input rows compacted (pads and duplicates dropped), so wherever the
+labeled side holds fewer voxels than `sup_voxel_cap` its DBSCAN clusters
+other voxels than those it pairs with features and masks. The port hands
+it the plan rows' coordinates (ROADMAP Queue 3, closed or deliberate).
 
 Each step draws its permutations from a generator seeded by (1234, step)
 (the Extra step: (4321, step)), as the JAX package folds the step into a
@@ -42,14 +52,9 @@ from .feature_mixing import draw_perms, mix_centroid_sup, mix_features
 from .schedule import make_lr_schedule
 
 PLAIN_SEED, EXTRA_SEED = 1234, 4321
-# field -> (the ported values, the ROADMAP item that will port the others)
-_PORTED = {
-    "extra_mode": (("threshold", "rc_oracle"),
-                   "ROADMAP Queue 1 item 6, evaluation and the discovery family: "
-                   "algo/dbscan.py and the host k-means"),
-}
 _CHOICES = {"mix_mode": ("none", "pairs", "centroid"), "mix_schedule": ("const", "linear"),
-            "thr_schedule": ("const", "step", "poly", "linear"), "head": HEADS}
+            "thr_schedule": ("const", "step", "poly", "linear"), "head": HEADS,
+            "extra_mode": ("threshold", "rc_oracle", "cluster")}
 
 
 @dataclass(frozen=True)
@@ -85,7 +90,8 @@ class FineTuneConfig:
     thr_end: float = 0.5
     # unsup pseudo-label source: threshold (NCC prob > thr over all unsup
     # rows, `exp.py:2524-2534`), rc_oracle (rows whose stored GT is the
-    # unknown label, `exp.py:1087-1100`), cluster (not ported yet)
+    # unknown label, `exp.py:1087-1100`), cluster (host DBSCAN -> k-means(K+1)
+    # -> Hungarian picks the unknown cluster, `exp.py:1123-1306`)
     extra_mode: str = "threshold"
     lr: float = 1e-4  # finetune_lr
     momentum: float = 0.9
@@ -98,12 +104,7 @@ class FineTuneConfig:
 
 
 def check_config(cfg: FineTuneConfig) -> None:
-    """Raise for a value the port does not run yet, naming its ROADMAP item,
-    and for a value no recipe has."""
-    for field, (ported, item) in _PORTED.items():
-        if getattr(cfg, field) not in ported:
-            raise NotImplementedError(
-                f"FineTuneConfig.{field}={getattr(cfg, field)!r}: only {ported} ported ({item})")
+    """Raise ValueError for a value no recipe has."""
     for field, choices in _CHOICES.items():
         if getattr(cfg, field) not in choices:
             raise ValueError(f"FineTuneConfig.{field} must be one of {choices}, "
@@ -291,14 +292,98 @@ def _threshold(cfg: FineTuneConfig, step: int) -> float:
     return _f32(a)
 
 
-def _pseudo_labels(cfg: FineTuneConfig, probs, mapped0, unsup_mask, thr: float):
+def _cluster_unknown_mask_host(coords, unsup, feats, probs_known):
+    """ExpClusterFineTuning's pseudo-unknown mining (`exp.py:1206-1296`), on
+    the host, a copy of the JAX package's: per unlabeled scan,
+    DBSCAN(eps=3, min_samples=2) on the voxel coordinates -> k-means(K+1)
+    over the cluster-mean input features (sklearn's KMeans when importable,
+    else a numpy Lloyd; noise points assigned by the fitted k-means, where
+    the reference re-fits a second k-means and merges by cluster id) -> a
+    Hungarian matching between cluster-mean class probabilities and classes;
+    the points of the cluster matched to the unknown column are the mask.
+    All four arrays are rows of the same level-0 plan."""
+    from scipy.optimize import linear_sum_assignment
+
+    from ..algo.dbscan import dbscan
+
+    coords = np.asarray(coords)
+    unsup = np.asarray(unsup)
+    feats = np.asarray(feats, np.float64)
+    probs_known = np.asarray(probs_known, np.float64)
+    K = probs_known.shape[1]
+    mask = np.zeros(coords.shape[0], bool)
+    for b in np.unique(coords[unsup, 0]) if unsup.any() else []:
+        rows = np.flatnonzero(unsup & (coords[:, 0] == b))
+        if rows.size < (K + 1) * 2:
+            continue
+        db = dbscan(coords[rows, 1:].astype(np.float64), eps=3, min_samples=2)
+        ncl = int(db.max()) + 1
+        if ncl < K + 1:
+            continue
+        cm = np.zeros((ncl, feats.shape[1]))
+        cnt = np.zeros(ncl)
+        core = db >= 0
+        np.add.at(cm, db[core], feats[rows[core]])
+        np.add.at(cnt, db[core], 1.0)
+        cm /= np.maximum(cnt, 1.0)[:, None]
+        try:
+            from sklearn.cluster import KMeans
+
+            km = KMeans(n_clusters=K + 1, n_init="auto", random_state=0).fit(cm)
+            assign, cents = km.labels_, km.cluster_centers_
+        except ImportError:  # numpy Lloyd
+            rng = np.random.default_rng(0)
+            cents = cm[rng.choice(ncl, K + 1, replace=False)]
+            for _ in range(25):
+                d = ((cm[:, None] - cents[None]) ** 2).sum(-1)
+                assign = d.argmin(1)
+                for c in range(K + 1):
+                    if (assign == c).any():
+                        cents[c] = cm[assign == c].mean(0)
+        point_k = np.full(rows.size, -1, np.int64)
+        point_k[core] = assign[db[core]]
+        if (~core).any():
+            dn = ((feats[rows[~core]][:, None] - cents[None]) ** 2).sum(-1)
+            point_k[~core] = dn.argmin(1)
+        P = np.zeros((K + 1, K + 1))
+        for c in range(K + 1):
+            sel = point_k == c
+            if sel.any():
+                P[c, :K] = probs_known[rows[sel]].mean(0)
+        np.nan_to_num(P, copy=False)
+        r_ind, c_ind = linear_sum_assignment(P, maximize=True)
+        for ri, ci in zip(r_ind, c_ind):
+            if ci == K:
+                mask[rows[point_k == ri]] = True
+    return mask
+
+
+def _cluster_unknown_mask(coords0, unsup_mask, feats0, probs_known):
+    """`_cluster_unknown_mask_host` on the plan's level-0 rows: the four
+    tensors read from the device in one copy, the mask sent back."""
+    dev = unsup_mask.device
+    f, k = feats0.shape[1], probs_known.shape[1]
+    rows = torch.cat([coords0.double(), unsup_mask.double()[:, None], feats0.double(),
+                      probs_known.double()], dim=1).cpu().numpy()  # the step's one read
+    mask = _cluster_unknown_mask_host(rows[:, :4].astype(np.int64), rows[:, 4] > 0,
+                                      rows[:, 5:5 + f], rows[:, 5 + f:5 + f + k])
+    return torch.as_tensor(mask, device=dev)
+
+
+def _pseudo_labels(cfg: FineTuneConfig, probs, mapped0, unsup_mask, thr: float,
+                   cluster_mask=None):
     """The unsup rows' pseudo labels and the rows that take part:
       * threshold (`exp.py:2524-2534`): every unsup row, its argmax, forced
         to the unknown slot where the NCC prob passes `thr`;
       * rc_oracle (`exp.py:1087-1100`): the unsup rows whose stored GT is the
         unknown label, target unknown where the NCC prob passes `thr`,
-        ignored (-1) otherwise."""
+        ignored (-1) otherwise;
+      * cluster (`exp.py:1206-1300`): every unsup row, the unknown slot where
+        `cluster_mask` holds, else class 0, as the reference's `torch.zeros`
+        targets are (faithfully)."""
     unk = cfg.unknown_label
+    if cfg.extra_mode == "cluster":
+        return torch.where(unsup_mask, torch.where(cluster_mask, unk, 0), -1), unsup_mask
     if cfg.extra_mode == "rc_oracle":
         rows = unsup_mask & (mapped0 == unk)
         return torch.where(rows & (probs[:, -1] > thr), unk, -1), rows
@@ -308,16 +393,16 @@ def _pseudo_labels(cfg: FineTuneConfig, probs, mapped0, unsup_mask, thr: float):
 
 def finetune_extra_train_step(state: TrainState, sup_vb: dict, unsup_vb: dict,
                               cfg: FineTuneConfig, draws: dict | None = None):
-    """ExpMixExtra*FineTuning / ExpRCExtra step in place on `state`: one
-    forward over the sup + unsup scans, the sup losses of
-    `finetune_train_step` on the sup rows, plus `unsup_coeff` x the
+    """ExpMixExtra*FineTuning / ExpRCExtra / ExpClusterFineTuning step in
+    place on `state`: one forward over the sup + unsup scans, the sup losses
+    of `finetune_train_step` on the sup rows, plus `unsup_coeff` x the
     pseudo-label CE on the unsup rows (`exp.py:2236-2798`). Returns (state,
     metrics): 'loss', 'seg', 'calib', 'unsup_seg', 'thr'."""
     check_config(cfg)
     model = state.model
     model.train()
-    plan, feats0, _, mapped0 = plan_and_gather(_combine_batches(sup_vb, unsup_vb, cfg),
-                                               cfg.voxel_caps)
+    combined = _combine_batches(sup_vb, unsup_vb, cfg)
+    plan, feats0, _, mapped0 = plan_and_gather(combined, cfg.voxel_caps)
     n_in = sup_vb["coords"].shape[0] + unsup_vb["coords"].shape[0]
     ok = plan.rep < n_in
     valid0 = plan.levels[0].valid
@@ -332,8 +417,14 @@ def finetune_extra_train_step(state: TrainState, sup_vb: dict, unsup_vb: dict,
     sup_targets = torch.where(sup_mask, mapped0, -1)
     loss, logits, parts = _sup_losses(cfg, model, out, sup_targets, sup_mask, draws["perms"],
                                       state.step)
-    pseudo, rows = _pseudo_labels(cfg, torch.softmax(logits.detach(), dim=-1), mapped0,
-                                  unsup_mask, thr)
+    probs = torch.softmax(logits.detach(), dim=-1)
+    cluster_mask = None
+    if cfg.extra_mode == "cluster":
+        # the level-0 rows' coordinates, gathered as feats0 is
+        coords0 = combined["coords"][torch.where(ok, plan.rep, 0).long()]
+        cluster_mask = _cluster_unknown_mask(coords0, unsup_mask, feats0,
+                                             probs[:, :cfg.num_labeled_classes])
+    pseudo, rows = _pseudo_labels(cfg, probs, mapped0, unsup_mask, thr, cluster_mask)
     l_unsup = cfg.unsup_coeff * cross_entropy(logits, pseudo, rows)
     loss = loss + l_unsup
     _sgd_step(state, cfg, loss)

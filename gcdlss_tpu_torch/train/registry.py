@@ -129,7 +129,7 @@ def resolve_module(name: str):
 
 
 STAGE15 = ("finetune", "finetune_extra", "finetune_test", "uncertainty")
-_ITEM6 = "ROADMAP Queue 1 item 6, evaluation and the discovery family"
+NOPS = ("nops", "nops_swav")
 
 
 def finetune_config(name: str, *, voxel_caps: tuple, batch_size: int,
@@ -139,24 +139,17 @@ def finetune_config(name: str, *, voxel_caps: tuple, batch_size: int,
     of `voxel_caps[0]` and `batch_size // 2` scans a side; the calibration
     weight is 0.15 on nuScenes, 0.05 elsewhere; `fields` (FineTuneConfig
     fields: the label space, `arch`, `lr`, ...) come next, and the recipe's
-    own overrides last.
+    own overrides last. ExpMixExtraTest's `subdivide_novel` is no config
+    field: the sweep reads it from the recipe (`subdivide_novel`).
 
-    Raises for a recipe of another stage, and for the variants the port does
-    not run yet (ExpMixExtraTest's `subdivide_novel`, the `nops` stages),
-    naming their ROADMAP item; `FineTuneConfig` values it does not run raise
-    when a model is made (`finetune.check_config`)."""
+    Raises for a recipe of another stage; `FineTuneConfig` values it does not
+    run raise when a model is made (`finetune.check_config`)."""
     from .finetune import FineTuneConfig
 
     stage, overrides = resolve_module(name)
-    if stage in ("nops", "nops_swav"):
-        raise NotImplementedError(f"{name}: the {stage!r} stage is not ported yet ({_ITEM6})")
     if stage not in STAGE15:
         raise ValueError(f"{name} is a {stage!r} recipe, not a Stage-1.5 one {STAGE15}")
-    overrides = dict(overrides)
-    if overrides.pop("subdivide_novel", False):
-        raise NotImplementedError(
-            f"{name}: the sweep's subdivide_novel (KMeans(2) over the novel points) is not "
-            f"ported yet ({_ITEM6})")
+    overrides = {k: v for k, v in overrides.items() if k != "subdivide_novel"}
     if stage == "finetune_extra":
         overrides.setdefault("sup_voxel_cap", voxel_caps[0] // 2)
         overrides.setdefault("num_sup_scans", max(batch_size // 2, 1))
@@ -164,3 +157,25 @@ def finetune_config(name: str, *, voxel_caps: tuple, batch_size: int,
           "calib_coeff": 0.15 if dataset == "nuScenes" else 0.05, **fields}
     kw.update(overrides)  # the recipe wins (e.g. ExpRCExtra's 0.01)
     return stage, FineTuneConfig(**kw)
+
+
+def subdivide_novel(name: str) -> bool:
+    """Whether the sweep of recipe `name` splits the novel points in two
+    (ExpMixExtraTest), as `main.py:278` pops it from the recipe."""
+    return bool(resolve_module(name)[1].get("subdivide_novel", False))
+
+
+def nops_config(name: str, *, voxel_caps: tuple, batch_size: int, **fields):
+    """(stage, NopsConfig) of the single-model discovery recipe `name`, as
+    `main.py:447-468` builds it: the sup rows take half of `voxel_caps[0]`,
+    `batch_size // 2` scans a side; `fields` (NopsConfig fields: the label
+    space, `arch`, `feat_dim`, `lr`, ...) come next, the recipe's overrides
+    last. Raises for a recipe of another stage."""
+    from .nops import NopsConfig
+
+    stage, overrides = resolve_module(name)
+    if stage not in NOPS:
+        raise ValueError(f"{name} is a {stage!r} recipe, not a single-model discovery one {NOPS}")
+    kw = {"voxel_caps": tuple(voxel_caps), "sup_voxel_cap": voxel_caps[0] // 2,
+          "num_sup_scans": max(batch_size // 2, 1), **fields, **overrides}
+    return stage, NopsConfig(**kw)

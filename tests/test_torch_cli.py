@@ -7,9 +7,12 @@ labeled in split 1, and 2 valid scans). Checked: config resolution against
 `main.py` and `gcdlss_tpu.config` for every file, dataset x split and
 registry name; the flat-YAML reader against `yaml.safe_load`; checkpoint
 round trips; a resumed Stage-1 run against an unbroken one, bit for bit; the
-Stage-1 -> 1.5 / 2 handoff and `--test` through the CLI; the refusals; and
-one Stage-1 epoch of the CLI's loop against the JAX loop from the same
-weights and batches (one compiled JAX step), within 1e-5 relative.
+Stage-1 -> 1.5 / 2 handoff and `--test` through the CLI; the single-model
+discovery recipes (a resumed SwaV run bit-equal to an unbroken one),
+ExpClusterFineTuning and ExpMixExtraTest's subdivided sweep through the
+CLI; the one refusal left (Cylinder3D); and one Stage-1 epoch of the CLI's
+loop against the JAX loop from the same weights and batches (one compiled
+JAX step), within 1e-5 relative.
 """
 
 import dataclasses
@@ -411,9 +414,58 @@ def test_stage2_recipes_train_through_the_cli(tree, stage1):
     ("--module", "ExpClusterFineTuning", "--batch_size", "4"),
     ("--module", "ExpMixExtraTest"),
 ], ids=["nops", "cylinder3d", "cluster", "subdivide"])
-def test_unported_recipes_raise_naming_roadmap(tree, extra):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [467]"):
-        cli.main(_argv(tree, "refused", *extra))
+def test_unported_recipes_raise_naming_roadmap(tree, stage1, extra):
+    """`--arch Cylinder3D` still raises, naming its ROADMAP item. The recipes
+    refused beside it until the single-model discovery family and the last
+    Stage-1.5 variants were ported now run on the CPU from Stage 1's
+    handoff: ExpDiscover and ExpClusterFineTuning an epoch (finite metrics,
+    the epoch's checkpoint and the handoff written), ExpMixExtraTest its
+    subdivided sweep (every threshold scored)."""
+    if "Cylinder3D" in extra:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 7"):
+            cli.main(_argv(tree, "refused", *extra))
+        return
+    exp = f"ran-{extra[1]}"
+    run = cli.main(_argv(tree, exp, *extra, "--epochs", "1", "--pretrained",
+                         str(tree / "ck" / "s1")))
+    if extra[1] == "ExpMixExtraTest":
+        assert run["recipe"] == "finetune_test" and len(run["result"]) == 7
+        assert all(r["conf"].sum() > 0 and np.isfinite(r["mIoU"]) for r in run["result"].values())
+        return
+    steps = run["module"].step_log
+    assert steps and all(np.isfinite(v) for st in steps for v in st.values())
+    assert [h["epoch"] for h in run["history"]] == [0]
+    saved = sorted(p.name for p in (tree / "ck" / exp).iterdir())
+    assert saved == ["0", "pretrained"]
+
+
+def test_nops_recipes_train_and_resume_through_the_cli(tree, stage1):
+    """ExpMixDiscoverJoint and ExpMixDiscover train an epoch through `main`
+    from Stage 1's handoff with their registry configs and the backbone's
+    queue width; ExpMixDiscoverSwaV trains 2 epochs, and 1 epoch resumed
+    into a second from its checkpoint ends bit-equal to them (model,
+    batch-norm statistics, momentum, queue, generator, step)."""
+    s1 = str(tree / "ck" / "s1")
+    for name in ("ExpMixDiscoverJoint", "ExpMixDiscover"):
+        run = cli.main(_argv(tree, f"nops-{name}", "--module", name, "--pretrained", s1,
+                             "--epochs", "1"))
+        module = run["module"]
+        for k, v in MODULE_REGISTRY[name][1].items():
+            assert getattr(module.cfg, k) == v, (name, k)
+        assert module.cfg.feat_dim == module.state.queue.feats.shape[-1] == 96
+        assert all(np.isfinite(v) for st in module.step_log for v in st.values()), name
+    unbroken = cli.main(_argv(tree, "swav-a", "--module", "ExpMixDiscoverSwaV", "--pretrained",
+                              s1, "--epochs", "2"))
+    cli.main(_argv(tree, "swav-b", "--module", "ExpMixDiscoverSwaV", "--pretrained", s1,
+                   "--epochs", "1"))
+    resumed = cli.main(_argv(tree, "swav-b", "--module", "ExpMixDiscoverSwaV", "--pretrained",
+                             s1, "--epochs", "2", "--resume_checkpoint", "1"))
+    assert resumed["start_epoch"] == 1 and [h["epoch"] for h in resumed["history"]] == [1]
+    assert resumed["history"][0] == unbroken["history"][1]
+    a, b = _state_tensors(unbroken["module"].state), _state_tensors(resumed["module"].state)
+    assert set(a) == set(b)
+    for k, v in a.items():
+        assert (torch.equal(v, b[k]) if isinstance(v, torch.Tensor) else v == b[k]), k
 
 
 def test_cli_epoch_matches_jax_loop(tree):

@@ -7,12 +7,15 @@ alone), `_mix_ratio`, `_threshold` (4 schedules over 8 epochs) and the
 pseudo-label rules. Steps, one compiled JAX step per variant, at MinkUNet14
 with caps (2048, 1024, 512, 512, 256): `finetune_train_step` for mix modes
 none (2 steps), pairs on cosine heads (2) and centroid with the linear
-schedule (1); `finetune_extra_train_step` for ExpMixExtraFineTuning (2) and
-ExpRCExtra (1). The JAX initial state is carried into the port
-(`utils.weights`) and the permutations the JAX step draws from
-`fold_in(PRNGKey(1234 or 4321), step)` are fed to the port's step. Then the
-uncertainty ranking, the threshold sweep, the registry, the Stage-1 -> 1.5
-warm start and the refusals. The port runs its plain kernel versions here.
+schedule (1); `finetune_extra_train_step` for ExpMixExtraFineTuning (2),
+ExpRCExtra (1) and ExpClusterFineTuning (1; the JAX step with its miner
+handed the plan rows' coordinates, `_jax_cluster_twin`: the JAX package
+hands it the input rows', `test_torch_cluster.py` shows the misalignment).
+The JAX initial state is carried into the port (`utils.weights`) and the
+permutations the JAX step draws from `fold_in(PRNGKey(1234 or 4321), step)`
+are fed to the port's step. Then the uncertainty ranking, the threshold
+sweep (plain, and subdivided on both of its routes), the registry, the
+Stage-1 -> 1.5 warm start and the recipes that used to be refused. The port runs its plain kernel versions here.
 At these caps the plans drop voxels from L1 on; both sides drop the same
 ones (plan parity at overflow: `test_torch_plan.py`). Where the JAX package
 builds a state only to be read (the ranking, the sweep, the warm start's
@@ -49,6 +52,7 @@ from gcdlss_tpu.ops.plan import build_unet_plan as jbuild_unet_plan
 from gcdlss_tpu.train import common as jcommon
 from gcdlss_tpu.train import feature_mixing as jfm
 from gcdlss_tpu.train import finetune as jft
+from gcdlss_tpu.train import nops as jnops
 from gcdlss_tpu.train import pretrain as jpt
 from gcdlss_tpu.train import registry as jreg
 from gcdlss_tpu.train import schedule as jschedule
@@ -59,6 +63,7 @@ from gcdlss_tpu_torch.eval import sweep as tsweep
 from gcdlss_tpu_torch.models import layers as tlayers
 from gcdlss_tpu_torch.train import common as tcommon
 from gcdlss_tpu_torch.train import feature_mixing as tfm
+from gcdlss_tpu_torch.train.discover import _combine_batches
 from gcdlss_tpu_torch.train import finetune as tft
 from gcdlss_tpu_torch.train import pretrain as tpt
 from gcdlss_tpu_torch.train import registry as treg
@@ -77,6 +82,7 @@ VARIANTS = {
     "centroid_linear": ("ExpBetaSchedulingFineTuning", 1, False),
     "mix_extra": ("ExpMixExtraFineTuning", 2, True),
     "rc_extra": ("ExpRCExtra", 1, True),
+    "cluster_extra": ("ExpClusterFineTuning", 1, True),
 }
 
 
@@ -407,7 +413,47 @@ def data(tmp_path_factory):
         tds=datasets(TorchSemanticKITTIDataset),
         plain=collate_batch([jds["lab"][0], jds["lab"][1]], CAPS[0]),
         sup=collate_batch([jds["lab"][0], jds["lab"][1]], SUP_CAP),
-        unsup=collate_batch([jds["unlab"][0], jds["unlab"][1]], CAPS[0] - SUP_CAP))
+        unsup=collate_batch([jds["unlab"][0], jds["unlab"][1]], CAPS[0] - SUP_CAP),
+        # the cluster miner's sides: one labeled scan (pad rows mid-stream),
+        # two blobby unlabeled scans (DBSCAN finds >= K + 1 clusters in each)
+        sup_one=collate_batch([jds["lab"][0]], SUP_CAP),
+        blobs=_blob_side(np.random.default_rng(12), CAPS[0] - SUP_CAP))
+
+
+def _blob_side(rng, cap, scans=2, blobs=40):
+    """A voxel batch (numpy dict) of `scans` scans of `blobs` tight blobs
+    each: unique coordinates in plan order, 90% of `cap`."""
+    centers = rng.uniform(-60, 60, size=(scans, blobs, 3))
+    b = np.sort(rng.integers(0, scans, 2 * cap))
+    pts = centers[b, rng.integers(0, blobs, 2 * cap)] + rng.normal(0, 1.0, (2 * cap, 3))
+    c = np.unique(np.concatenate([b[:, None], np.floor(pts)], 1).astype(np.int32), axis=0)
+    c = c[:int(cap * 0.9)]
+    coords = np.zeros((cap, 4), np.int32)
+    coords[:len(c)] = c
+    valid = np.arange(cap) < len(c)
+    labels = np.where(valid, rng.integers(0, 19, cap), -1).astype(np.int32)
+    return {"coords": coords, "feats": rng.uniform(0, 1, (cap, 1)).astype(np.float32),
+            "labels": labels, "mapped_labels": labels, "valid": valid}
+
+
+def _jax_cluster_twin(tb, tcfg):
+    """The JAX miner with the plan rows' coordinates in place of the input
+    rows' the JAX step hands it (`gcdlss_tpu/train/finetune.py:405-409`):
+    the rows its mask and features are in, as the port passes them."""
+    combined = _combine_batches(*tb, tcfg)
+    plan, _, _, _ = tcommon.plan_and_gather(combined, tcfg.voxel_caps)
+    ok = plan.rep < combined["coords"].shape[0]
+    coords0 = combined["coords"][torch.where(ok, plan.rep, 0).long()].numpy()
+    miner = jft._cluster_unknown_mask_host
+
+    def twin(coords, unsup, feats, probs_known):
+        assert coords.shape == coords0.shape
+        mask = miner(coords0, unsup, feats, probs_known)
+        twin.masked.append(int(mask.sum()))
+        return mask
+
+    twin.masked = []
+    return twin
 
 
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
@@ -428,10 +474,19 @@ def run(request, data):
     jstate = jcommon.TrainState(
         params=params, batch_stats=stats, step=jnp.zeros((), jnp.int32),
         opt_state=jcommon.make_sgd(jcfg, jschedule.make_lr_schedule(jcfg)).init(params))
+    patch = pytest.MonkeyPatch()
     if extra:
         jb = [jcommon.voxel_batch_to_device(data[s]["voxel"]) for s in ("sup", "unsup")]
         tb = [tcommon.voxel_batch_to_device(data[s]["voxel"], "cpu") for s in ("sup", "unsup")]
         jstep, tstep, base = jft.finetune_extra_train_step, tft.finetune_extra_train_step, 4321
+        if tcfg.extra_mode == "cluster":
+            keys = ("coords", "feats", "labels", "mapped_labels", "valid")
+            sides = [{k: np.asarray(getattr(data["sup_one"]["voxel"], k)) for k in keys},
+                     data["blobs"]]
+            jb = [{k: jnp.asarray(v) for k, v in side.items()} for side in sides]
+            tb = [{k: _t(v) for k, v in side.items()} for side in sides]
+            twin = _jax_cluster_twin(tb, tcfg)
+            patch.setattr(jft, "_cluster_unknown_mask_host", twin)
     else:
         jb = [jcommon.voxel_batch_to_device(data["plain"]["voxel"])]
         tb = [tcommon.voxel_batch_to_device(data["plain"]["voxel"], "cpu")]
@@ -440,7 +495,8 @@ def run(request, data):
     perms = [_jax_perms(base, step, CAPS[0], count) for step in range(steps)]
     out = []
     for step in range(steps):
-        jstate, jm = jstep(jstate, *jb, jcfg)
+        with patch.context():
+            jstate, jm = jstep(jstate, *jb, jcfg)
         tstate, tm = tstep(tstate, *tb, tcfg, draws={"perms": perms[step]})
         out.append(dict(jm={k: float(v) for k, v in jm.items()},
                         tm={k: float(v) for k, v in tm.items()},
@@ -448,6 +504,7 @@ def run(request, data):
                         tsd={k: v.detach().clone() for k, v in
                              tstate.model.state_dict().items()}))
     assert tstate.step == steps == int(jstate.step)
+    patch.undo()
 
     pstate = tft.create_finetune_state(0, tcfg, device="cpu")
     pstate.model.load_state_dict(sd0)
@@ -460,6 +517,8 @@ def run(request, data):
     response = max(float((v - out[-1]["tsd"][k]).abs().max()
                          / out[-1]["tsd"][k].abs().max().clamp(min=1e-6))
                    for k, v in pstate.model.state_dict().items())
+    if tcfg.extra_mode == "cluster":  # the miner marked rows unknown
+        assert twin.masked and min(twin.masked) > 0, twin.masked
     return dict(name=request.param, cfg=tcfg, steps=out, response=response,
                 sd0={k: v.numpy() for k, v in sd0.items()})
 
@@ -570,6 +629,35 @@ def test_threshold_sweep_matches_jax(data, eval_models):
     assert len({round(r["mIoU"], 6) for r in ref.values()}) > 2
 
 
+@pytest.mark.parametrize("route", ["sklearn", "fallback"])
+def test_subdivided_sweep_matches_jax(data, eval_models, route, monkeypatch):
+    """ExpMixExtraTest's sweep (`subdivide=True`): the predicted-novel
+    points split in two by KMeans(2) over their features, or, with
+    scikit-learn hidden from both packages, at the median of the feature
+    sums; mIoUs within 1e-6 of the JAX sweep's at every threshold."""
+    import sys
+
+    if route == "fallback":
+        monkeypatch.setitem(sys.modules, "sklearn", None)
+        monkeypatch.setitem(sys.modules, "sklearn.cluster", None)
+    e = eval_models
+    known = [k for k, v in data["mapping"].items() if v != LABEL_SPACE["unknown_label"]]
+    unknown = [k for k, v in data["mapping"].items() if v == LABEL_SPACE["unknown_label"]]
+    assert len(unknown) == 2
+    ref = jsweep.threshold_sweep_test(e["params"], e["stats"], data["jds"]["val"], e["jcfg"],
+                                      data["inv"], known, unknown, subdivide=True,
+                                      point_cap=1024)
+    got = tsweep.threshold_sweep_test(e["model"], data["tds"]["val"], e["tcfg"], data["inv"],
+                                      known, unknown, subdivide=True, point_cap=1024)
+    plain = tsweep.threshold_sweep_test(e["model"], data["tds"]["val"], e["tcfg"], data["inv"],
+                                        known, unknown, point_cap=1024)
+    for t, r in ref.items():
+        for k in ("mIoU", "mIoU_old", "mIoU_new"):
+            np.testing.assert_allclose(got[t][k], r[k], rtol=0, atol=1e-6, err_msg=f"{t} {k}")
+    # the split sends points to the second novel class: other confusions
+    assert any(not np.array_equal(got[t]["conf"], plain[t]["conf"]) for t in got)
+
+
 # --------------------------------------------- registry, warm start, refusals
 
 
@@ -673,18 +761,33 @@ def test_cosine_heads_cross_the_bridge():
 
 
 def test_refusals_name_their_roadmap_item():
-    tcfg, _ = _cfgs("ExpClusterFineTuning")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tft.make_model(tcfg)
+    """The three Stage-1.5 / single-model recipes once refused here build as
+    the JAX package's `main.py` builds them: ExpClusterFineTuning's config
+    (`extra_mode="cluster"`) and model, ExpMixExtraTest's sweep flag
+    (`subdivide_novel`, read from the recipe) and ExpDiscover's
+    `NopsConfig`; a value no recipe has still raises."""
+    tcfg, jcfg = _cfgs("ExpClusterFineTuning")
+    assert (tcfg.extra_mode, tcfg.unsup_coeff, tcfg.sup_voxel_cap) == ("cluster", 0.1, SUP_CAP)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert isinstance(tft.make_model(tcfg), tft.MinkUNetRC)
     # remat is ported: the state builds with its blocks recomputed in backward
-    assert tft.create_finetune_state(0, dataclasses.replace(tcfg, extra_mode="threshold",
-                                                            remat=True),
+    assert tft.create_finetune_state(0, dataclasses.replace(tcfg, remat=True),
                                      device="cpu").model.encoder.block1.remat
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tsweep.threshold_sweep_test(None, None, tcfg, {}, [0], [17], subdivide=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        treg.finetune_config("ExpMixExtraTest", voxel_caps=CAPS, batch_size=4, **LABEL_SPACE)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        treg.finetune_config("ExpDiscover", voxel_caps=CAPS, batch_size=4, **LABEL_SPACE)
+    stage, cfg = treg.finetune_config("ExpMixExtraTest", voxel_caps=CAPS, batch_size=4,
+                                      **LABEL_SPACE)
+    overrides = dict(jreg.MODULE_REGISTRY["ExpMixExtraTest"][1])
+    assert stage == "finetune_test" and treg.subdivide_novel("ExpMixExtraTest")
+    assert overrides.pop("subdivide_novel") and not treg.subdivide_novel("ExpRCTest")
+    assert all(getattr(cfg, k) == v for k, v in overrides.items())
+    stage, ncfg = treg.nops_config("ExpDiscover", voxel_caps=CAPS, batch_size=4, num_classes=19,
+                                   num_labeled_classes=17, num_unlabeled_classes=2,
+                                   unknown_label=17)
+    ref = jnops.NopsConfig(num_labeled_classes=17, num_unlabeled_classes=2, num_classes=19,
+                           unknown_label=17, voxel_caps=CAPS, sup_voxel_cap=SUP_CAP,
+                           num_sup_scans=2)
+    assert stage == "nops" and dataclasses.asdict(ncfg) == dataclasses.asdict(ref)
     with pytest.raises(ValueError):
-        tft.make_model(dataclasses.replace(tcfg, extra_mode="threshold", mix_mode="feature"))
+        treg.finetune_config("ExpDiscover", voxel_caps=CAPS, batch_size=4, **LABEL_SPACE)
+    for bad in (dict(mix_mode="feature"), dict(extra_mode="dbscan")):
+        with pytest.raises(ValueError):
+            tft.make_model(dataclasses.replace(tcfg, **bad))

@@ -12,6 +12,8 @@ every mode of `tools/conv_parts.py` at small and at its full-width shapes,
 with that tool's tolerances.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -51,9 +53,27 @@ def _close(got, ref):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("ci,co,kind", [(1, 32, "stem"), (192, 96, "k3"), (32, 32, "down"),
-                                        (64, 48, "up")])
-def test_gather_gemm_matches_plain(plan, ci, co, kind):
+def _for_each(cases, check) -> None:
+    """`check(*case)` for every case, the failing case named. (The card-only
+    case lists run as loops inside one test each: parametrized, they would
+    add ~70 items that skip on the CPU, and the CPU suite's collected count
+    decides which tests share a worker there; ROADMAP, "Test budget".)"""
+    for case in cases:
+        try:
+            check(*case)
+        except AssertionError as exc:
+            raise AssertionError(f"case {case}: {exc}") from exc
+
+
+
+def test_gather_gemm_matches_plain(plan):
+    """K1 and K2 on the plan's books: the stem, a k3 level, a down and an up
+    pool, each against the plain versions."""
+    _for_each([(plan, 1, 32, "stem"), (plan, 192, 96, "k3"), (plan, 32, 32, "down"),
+               (plan, 64, 48, "up")], _check_gather_gemm_book)
+
+
+def _check_gather_gemm_book(plan, ci: int, co: int, kind: str) -> None:
     if kind == "stem":
         nbr, adj, valid = plan.stem_nbr, plan.stem_nbr.flip(1), plan.levels[0].valid
     elif kind == "k3":
@@ -76,15 +96,21 @@ def test_gather_gemm_matches_plain(plan, ci, co, kind):
     _close(dw, rdw)
 
 
-@pytest.mark.parametrize("ci,co,k,n_out,n_in,off", [
+RAGGED_GEMM_CASES = [  # (ci, co, k, n_out, n_in, off)
     (1, 20, 27, 4099, 4099, 0), (4, 32, 8, 4100, 6001, 0), (24, 256, 27, 5000, 5000, 0),
     (48, 96, 27, 4097, 4097, 1), (192, 32, 8, 6001, 4100, 0), (384, 256, 27, 4111, 4111, 1),
-    (96, 96, 125, 4096, 4096, 0)])
-def test_gather_gemm_ragged_shapes_and_misaligned_x(plan, ci, co, k, n_out, n_in, off):
+    (96, 96, 125, 4096, 4096, 0)]
+
+
+def test_gather_gemm_ragged_shapes_and_misaligned_x(plan):
     """Widths that are no multiple of 8, row counts that are no multiple of
     any tile, N_in != N_out, books without locality with empty strips and
     empty offsets, and an x that starts 2 bytes off a 16-byte boundary: served,
     in f32 and bf16, with dX skipped on request, the same bits on every run."""
+    _for_each([(plan, *case) for case in RAGGED_GEMM_CASES], _check_gather_gemm_ragged)
+
+
+def _check_gather_gemm_ragged(plan, ci, co, k, n_out, n_in, off) -> None:
     dev = plan.stem_nbr.device
     g = torch.Generator(device="cuda").manual_seed(ci * 1000 + co)
 
@@ -119,8 +145,11 @@ def test_gather_gemm_ragged_shapes_and_misaligned_x(plan, ci, co, k, n_out, n_in
     assert torch.equal(rw, dw)
 
 
-@pytest.mark.parametrize("kind", ["absent", "full"])
-def test_gather_gemm_all_absent_and_full_books(plan, kind):
+def test_gather_gemm_all_absent_and_full_books(plan):
+    _for_each([(plan, "absent"), (plan, "full")], _check_gather_gemm_absent_full)
+
+
+def _check_gather_gemm_absent_full(plan, kind: str) -> None:
     dev = plan.stem_nbr.device
     g = torch.Generator(device="cuda").manual_seed(3)
     n, k, ci, co = 4113, 27, 64, 48
@@ -155,22 +184,16 @@ def test_wrappers_reject_wrong_inputs(plan):
         gather_gemm(x, nbr, w, out_dtype=torch.float16)
 
 
-@pytest.mark.parametrize("lvl,k1", [(0, 5), (0, 3), (1, 3), (3, 3)])
-def test_cube_map_matches_join(plan, lvl, k1):
+PLAN_MAPS = [(0, 5), (0, 3), (1, 3), (3, 3)]  # (level, k1)
+
+
+def test_cube_map_matches_join(plan):
+    _for_each([(plan, lvl, k1) for lvl, k1 in PLAN_MAPS], _check_cube_map_plan_level)
+
+
+def _check_cube_map_plan_level(plan, lvl: int, k1: int) -> None:
     kh, kl = plan.levels[lvl].key_hi, plan.levels[lvl].key_lo
     assert torch.equal(cube_neighbor_map(kh, kl, k1), join_neighbor_map(kh, kl, k1))
-
-
-def _for_each(cases, check) -> None:
-    """`check(*case)` for every case, the failing case named. (The card-only
-    case lists run as loops inside one test each: parametrized, they would
-    add ~70 items that skip on the CPU, and the CPU suite's collected count
-    decides which tests share a worker there; ROADMAP, "Test budget".)"""
-    for case in cases:
-        try:
-            check(*case)
-        except AssertionError as exc:
-            raise AssertionError(f"case {case}: {exc}") from exc
 
 
 def test_cube_map_matches_join_on_adversarial_levels(plan):
@@ -231,8 +254,11 @@ def test_cube_map_rejects_wrong_inputs(plan):
             cube_neighbor_map(kh, kl, k1)
 
 
-@pytest.mark.parametrize("lvl,k1", [(0, 5), (0, 3), (1, 3), (3, 3)])
-def test_cube_candidates_matches_plain_and_k3(plan, lvl, k1):
+def test_cube_candidates_matches_plain_and_k3(plan):
+    _for_each([(plan, lvl, k1) for lvl, k1 in PLAN_MAPS], _check_cube_candidates_plan_level)
+
+
+def _check_cube_candidates_plan_level(plan, lvl: int, k1: int) -> None:
     kh, kl = plan.levels[lvl].key_hi, plan.levels[lvl].key_lo
     p, has = _column_ranks(kh != SENTINEL_HI, kh, kl, k1)
     before = cube_candidates_map.launches
@@ -277,15 +303,13 @@ def test_cube_candidates_rejects_wrong_inputs(plan):
 PART_SHAPES = [(4096, 16, 0.05), (4096, 32, 0.4), (262_144, 96, 0.05), (131_072, 256, 0.4)]
 
 
-@pytest.fixture(scope="module", params=PART_SHAPES, ids=lambda s: f"N{s[0]}-C{s[1]}")
-def parts(request):
-    """(x, w, nbr) on the card at one of the tool's shapes, and every mode
-    of the tool's table on them."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+@functools.lru_cache(maxsize=None)
+def _parts(shape):
+    """(x, w, nbr) on the card at one of the tool's shapes, every mode of the
+    tool's table on them, and the tool's tolerances (made once a shape)."""
     from gcdlss_tpu_torch.tools import conv_parts as tool
 
-    rows, c, voxel = request.param
+    rows, c, voxel = shape
     dev = torch.device("cuda")
     nbr, valid, _ = tool.level0_book(rows, voxel, 0, dev)
     g = torch.Generator(device="cuda").manual_seed(c)
@@ -294,14 +318,22 @@ def parts(request):
     return x, w, nbr, tool.modes(x, w, nbr, rows, c), tool.TOL
 
 
-def test_conv_parts_match_plain_in_every_mode(parts):
+def _for_each_part_shape(plan, check) -> None:
+    """`check(*_parts(shape))` at each of PART_SHAPES, the failing one named."""
+    _for_each([(shape,) for shape in PART_SHAPES], lambda shape: check(*_parts(shape)))
+
+
+def test_conv_parts_match_plain_in_every_mode(plan):
     """Every mode of P1-P4 (layouts, windows, buffers, window starts; index
     modes rolled and unrolled; product; one-hot) against its plain version:
     P1 1e-3, P2 1e-5, P3 and P4 1e-2 of the reference's scale, index_only
-    exact."""
+    exact; at each of PART_SHAPES."""
+    _for_each_part_shape(plan, _check_parts_every_mode)
+
+
+def _check_parts_every_mode(x, w, nbr, modes, tol) -> None:
     from gcdlss_tpu_torch.ops import conv_parts as cp
 
-    x, w, nbr, modes, tol = parts
     assert {m["part"] for m in modes} == {"P1", "P2", "P3", "P4", "K1"}
     for m in modes:
         fn = getattr(cp, m["kernel"], None) or gather_gemm
@@ -316,13 +348,16 @@ def test_conv_parts_match_plain_in_every_mode(parts):
                                        atol=tol[m["part"]] * float(ref.abs().max()))
 
 
-def test_onehot_conv_far_entries(parts):
+def test_onehot_conv_far_entries(plan):
     """P4 on a book whose entries mostly lie outside their sub-windows (a
     random book) is still the conv, and counts those entries as the plain
-    rule does."""
+    rule does; at each of PART_SHAPES."""
+    _for_each_part_shape(plan, _check_onehot_far)
+
+
+def _check_onehot_far(x, w, nbr, _, tol) -> None:
     from gcdlss_tpu_torch.ops import conv_parts as cp
 
-    x, w, nbr, _, tol = parts
     g = torch.Generator(device="cuda").manual_seed(1)
     rnd = torch.randint(-1, x.shape[0], nbr.shape, device=x.device, generator=g,
                         dtype=torch.int32)
@@ -334,12 +369,15 @@ def test_onehot_conv_far_entries(parts):
     assert int(far) > 0.8 * int((rnd >= 0).sum())
 
 
-def test_window_sum_unaligned_starts(parts):
+def test_window_sum_unaligned_starts(plan):
     """Window starts that are no multiple of 8: the column layouts stage
-    those runs element by element."""
+    those runs element by element; at each of PART_SHAPES."""
+    _for_each_part_shape(plan, _check_window_sum_unaligned)
+
+
+def _check_window_sum_unaligned(x, _w, _nbr, _modes, tol) -> None:
     from gcdlss_tpu_torch.ops import conv_parts as cp
 
-    x, _, _, _, tol = parts
     n = x.shape[0]
     ws = (torch.arange(n // 256, dtype=torch.int32, device=x.device) * 251 + 3).clamp(max=n - 2048)
     for layout in cp.LAYOUTS:
@@ -374,10 +412,13 @@ def test_window_sum_refuses_what_the_kernel_does_not_serve(plan):
         cp.window_sum(store[1:1 + 1024 * 16].view(1024, 16), ws, 512)
 
 
-def test_conv_parts_reject_wrong_inputs(parts):
+def test_conv_parts_reject_wrong_inputs(plan):
+    _for_each_part_shape(plan, _check_parts_reject)
+
+
+def _check_parts_reject(x, w, nbr, _modes, _tol) -> None:
     from gcdlss_tpu_torch.ops import conv_parts as cp
 
-    x, w, nbr, _, _ = parts
     ws = cp.window_starts(x.shape[0], 256, 2048).to(x.device)
     with pytest.raises(TypeError):
         cp.window_sum(x.float(), ws, 2048)
@@ -480,14 +521,13 @@ def test_onehot_conv_refuses_what_the_kernel_does_not_serve(plan):
                        torch.zeros(65, 16, 8, device=dev, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("stage", [1, 2])
-def test_plan_build_waits_for_no_host_sync(plan, stage):
+def test_plan_build_waits_for_no_host_sync(plan):
     """`build_unet_plan` at the Stage-1 and Stage-2 caps of `chip_smoke.py`
     with `torch.cuda.set_sync_debug_mode("error")`: no operation of the
     build makes the host wait for the card."""
     import chip_smoke
 
-    chip_smoke.plan_sync_case(plan.stem_nbr.device, stage)
+    _for_each([(plan.stem_nbr.device, 1), (plan.stem_nbr.device, 2)], chip_smoke.plan_sync_case)
 
 
 def _finetune_sides(rng, cap, scans):
@@ -504,14 +544,15 @@ def _finetune_sides(rng, cap, scans):
             "valid": np.arange(cap) < len(c)}
 
 
-@pytest.mark.parametrize("extra", [False, True], ids=["plain", "extra"])
-def test_finetune_steps_match_the_cpu(extra):
+def test_finetune_steps_match_the_cpu(plan):
     """Two Stage-1.5 steps (pairs mixing; the Extra step with the entropy
     terms and pseudo labels) on the card (kernels) and on the CPU (plain
     versions) from the same weights with the same draws, bf16 activations on
     both: each loss part within chip_smoke's card-vs-CPU tolerance."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    _for_each([(False,), (True,)], _check_finetune_steps)
+
+
+def _check_finetune_steps(extra: bool) -> None:
     from chip_smoke import REF_TOL
     from gcdlss_tpu_torch.train import finetune as tft
 
@@ -541,11 +582,15 @@ def test_finetune_steps_match_the_cpu(extra):
             assert abs(got[k] - r) <= REF_TOL * abs(r), (k, got[k], r)
 
 
-@pytest.mark.parametrize("kind", ["subm", "down", "up"])
-def test_f32_convs_round_to_bf16_and_sum_in_f32(plan, kind):
+def test_f32_convs_round_to_bf16_and_sum_in_f32(plan):
     """An f32 model's conv on the card: x, W and the cotangent rounded to
     bf16, K1 / K2 summing in f32, the result and dX in f32, dW in W's dtype;
-    equal to the plain versions on the bf16-rounded inputs."""
+    equal to the plain versions on the bf16-rounded inputs (a submanifold
+    conv, a down and an up pool)."""
+    _for_each([(plan, "subm"), (plan, "down"), (plan, "up")], _check_f32_conv)
+
+
+def _check_f32_conv(plan, kind: str) -> None:
     from gcdlss_tpu_torch.ops.fused_conv import pool_conv, subm_conv
 
     if kind == "subm":

@@ -53,7 +53,9 @@ def test_port_imports_no_jax():
             "gcdlss_tpu_torch.utils.misc", "gcdlss_tpu_torch.utils.visualize",
             "gcdlss_tpu_torch.algo.sinkhorn", "gcdlss_tpu_torch.algo.clustering",
             "gcdlss_tpu_torch.losses_lion", "gcdlss_tpu_torch.ops.voxelize",
-            "gcdlss_tpu_torch.eval.ioueval", "gcdlss_tpu_torch.eval.clustering_eval"} <= set(names)
+            "gcdlss_tpu_torch.eval.ioueval", "gcdlss_tpu_torch.eval.clustering_eval",
+            "gcdlss_tpu_torch.algo.dbscan", "gcdlss_tpu_torch.train.nops",
+            "gcdlss_tpu_torch.tools.discovery_quality"} <= set(names)
     proc = _run("import importlib, sys\n"
                 f"for n in {names!r}: importlib.import_module(n)\n" + REPORT_FORBIDDEN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
