@@ -85,6 +85,17 @@ Phases, each of which raises on failure:
      cross-view matches, the queue; finite losses, no plan overflow), then
      one step of each on a small input on the card against the CPU
      (`nops_card_vs_cpu`);
+  8c. Cylinder3D (`cylinder_phase`): K3 at every level of a cylinder plan
+     (the VFE's voxels of a Stage-2 batch, caps `cylinder_caps(S2_CAP0)`)
+     bit for bit against the join path, K1/K2 on its K = 9, 3 and 27
+     subset books at 64 and 512 channels and on its paired strided books
+     ((2, 2, 2) and (2, 2, 1), both role orders), `pool_conv` against the
+     plain `paired_gather_conv`; then Stage 2 on `Cylinder3DRC` at the
+     `bench.py` configuration (f32, 3 steps + validate; device and host step
+     times, peak memory, launches a step, each cylinder plan's unique voxels
+     per level against its caps, candidates, `has_novel`), the supervised
+     trainer at `CylinderConfig`'s defaults (3 steps + eval) and
+     `Cylinder3DRC` on a small input, card against CPU;
   9. CLI: the port's CLI (`python -m gcdlss_tpu_torch.main`, called as
      `main(argv)` in this process) as a user runs it, f32 (its only dtype),
      on one synthetic tree of 80k-point scans at 0.05 m (`cli_runs`): (a)
@@ -98,7 +109,9 @@ Phases, each of which raises on failure:
      (l) ExpMixDiscoverSwaV from (a)'s handoff, (m) (k) resumed at epoch 1;
      (n) Stage 2 at MinkUNet50 from (f)'s handoff (batch 2, cap0 F6_CAP0);
      (o) `ExpClusterFineTuning` from (a)'s handoff and (p) ExpMixExtraTest's
-     subdivided sweep on (o)'s state. Every run: finite losses, no
+     subdivided sweep on (o)'s state; (q) Stage 2 with `--arch Cylinder3D`
+     (one epoch, fresh weights) and (r) `--test` on its state, whose mIoU
+     must equal (q)'s. Every run: finite losses, no
      plan (train or eval) dropping a voxel, K1 and K3 launched (K2 in every
      training run), K4 not; step times, peak memory and the card printed.
      Then the offline clustering evaluation on (d)'s saved state, card
@@ -115,7 +128,8 @@ Phases, each of which raises on failure:
 
 Each path (the tool's `main`, the Stage-1 slice, each run of the Stage-1.5
 slice, the Stage-2 slice, each Stage-2 variant, each single-model recipe,
-each CLI run, the discovery-quality run) sets every kernel's launch count to
+Cylinder3D's Stage-2 run and its trainer, each CLI run, the
+discovery-quality run) sets every kernel's launch count to
 0 just before it and reads it just after: each kernel of its path must have
 launched.
 Every kernel row carries its bound, the least time the card could take for
@@ -1735,7 +1749,7 @@ def remat_phase(device, card: str) -> dict:
 
 
 CLI_TREE = (12, 2)  # train and valid scans: 6 labeled (split 1, 50%), 3 steps an epoch
-TEST_RUNS = {"e": "d", "i": "h"}  # a `--test` run -> the training run whose state it reads
+TEST_RUNS = {"e": "d", "i": "h", "r": "q"}  # a `--test` run -> the run whose state it reads
 SWEEP_RUNS = {"p": "o"}  # a threshold-sweep run -> the training run whose state it reads
 # Stage 2 at MinkUNet50 (f32): at batch 4 (2 + 2 scans, ~123k voxels a side)
 # cap0 must reach ~250k, where the predicted peak (~91-101 GiB) does not fit
@@ -1802,6 +1816,11 @@ def cli_runs(root: Path) -> list:
          "ExpClusterFineTuning from the handoff"),
         ("p", common + variant("ExpMixExtraTest", "s15cl") + ["--checkpoint", str(ck / "s15cl")],
          "ExpMixExtraTest's subdivided sweep on (o)'s state"),
+        ("q", common + s2_args[:-1] + ["s2cyl", "--arch", "Cylinder3D", "--epochs", "1"],
+         "Stage 2 on Cylinder3D"),
+        ("r", common + s2_args[:-1] + ["s2cyl", "--arch", "Cylinder3D", "--test",
+                                       "--checkpoint", str(ck / "s2cyl")],
+         "Stage 2 Cylinder3D --test on (q)'s state"),
     ]
 
 
@@ -1813,7 +1832,8 @@ def cli_phase(device, card: str) -> dict:
     `--test`) and PolarMix-MT recipes from the handoff, ExpDiscover (then
     resumed at epoch 1) and ExpMixDiscoverSwaV from it, Stage 2 at
     MinkUNet50 from (f)'s handoff, ExpClusterFineTuning and ExpMixExtraTest's
-    subdivided sweep on its state. Each run: finite losses, no plan dropping
+    subdivided sweep on its state, Stage 2 with `--arch Cylinder3D` and
+    `--test` on its state. Each run: finite losses, no plan dropping
     a voxel, K1 and K3 launched (K2 in every training run), K4 not; each
     `--test` gives its training run's last mIoU; each sweep scores every
     threshold. Then `clustering_eval_check` on (d)'s saved state. Returns the
@@ -2059,6 +2079,337 @@ def discovery_phase(device, card: str) -> dict:
     return launches
 
 
+class CylPlanProbe:
+    """Inside, every cylinder plan a model builds (`models.cylinder3d.
+    build_cyl_plan`) records its levels' unique counts, on the device, and
+    its caps, for `read`."""
+
+    def __enter__(self):
+        from gcdlss_tpu_torch.models import cylinder3d
+
+        self.mod, self.orig, self.seen = cylinder3d, cylinder3d.build_cyl_plan, []
+
+        def probe(coords, valid, caps, *args):
+            import torch
+
+            plan = self.orig(coords, valid, caps, *args)
+            self.seen.append((torch.stack([lvl.count for lvl in plan.levels]), tuple(caps)))
+            return plan
+
+        cylinder3d.build_cyl_plan = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_cyl_plan = self.orig
+
+    def read(self) -> list:
+        """(counts, caps) of each plan since the last read, on the host."""
+        seen, self.seen = self.seen, []
+        return [(c.tolist(), caps) for c, caps in seen]
+
+
+def cylinder_kernel_rows(device) -> list:
+    """K3, K1/K2 and the paired strided conv at Cylinder3D's shapes, on the
+    cylinder plan of a Stage-2 combined batch (2 + 2 scans, cap0 S2_CAP0;
+    the VFE's cylindrical voxels at `cylinder_caps(S2_CAP0)`): K3 at every
+    level bit for bit against the join path (rows with times for L0 and
+    L3); K1/K2 (`gemm_phase`) on the K = 9 and K = 3 subset books at 64
+    channels (L0) and 512 (L3), the full 27 at L3, and the 27-column paired
+    books of a (2, 2, 2) and a (2, 2, 1) edge in both role orders; then
+    `pool_conv` (the model's autograd route: f32 in, bf16 operands) forward
+    and backward against the plain `paired_gather_conv` on the same
+    bf16-rounded inputs, relative error <= DW_TOL."""
+    import torch
+
+    from gcdlss_tpu_torch.models.cylinder3d import SegVFE, build_cyl_plan, cylinder_caps
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops.coords import encode_coords
+    from gcdlss_tpu_torch.ops.fused_conv import pool_conv
+    from gcdlss_tpu_torch.ops.plan import join_neighbor_map
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_neighbor_map
+
+    coords, valid = voxel_batch(np.random.default_rng(3), device, sides=2)
+    caps = cylinder_caps(S2_CAP0)
+    vfe = SegVFE(1, generator=torch.Generator().manual_seed(0)).to(device).eval()
+    with torch.no_grad():
+        vox = vfe(coords[:, 1:4].float() * torch.tensor(VOXEL_SIZE, device=device),
+                  torch.ones(coords.shape[0], 1, device=device), coords[:, 0], valid, caps[0])
+        plan = build_cyl_plan(vox["coords"], vox["valid"], caps)
+    lv, edges = plan.levels, plan.edges
+    log(f"cylinder kernel plan: caps {caps}, unique voxels {[int(lvl.count) for lvl in lv]}")
+    rows = []
+    for i, lvl in enumerate(lv):
+        kh, kl = encode_coords(lvl.coords, lvl.valid)
+        got, ref = cube_neighbor_map(kh, kl, 3), join_neighbor_map(kh, kl, 3)
+        mism = int((got != ref).sum()) + int((got != lvl.nbr27).sum())
+        if mism:
+            raise AssertionError(f"K3 cylinder L{i}: {mism} entries differ from the join path")
+        if i in (0, 3):
+            ms = cuda_time_ms(lambda: cube_neighbor_map(kh, kl, 3))
+            pms = cuda_time_ms(lambda: join_neighbor_map(kh, kl, 3))
+            log(f"K3 cylinder L{i} k3: cap {kh.shape[0]}, bit for bit | kernel {ms:.3f} ms, "
+                f"plain {pms:.3f} ms")
+            rows.append(dict(name=f"K3 cube_map cylinder L{i} k3", route="cuda",
+                             source="gcdlss_tpu_torch/csrc/cube_map.cu",
+                             replaces="gcdlss_tpu/ops/plan_kernel.py:378", max_abs_err=0.0,
+                             ms=ms, plain_ms=pms, **bound(nbytes(kh, kl, got), 0)))
+
+    def subm(i, shape, ch):
+        book = lv[i].books[shape]
+        return (f"L{i} {''.join(map(str, shape))} K{book.shape[1]} {ch}->{ch}", lv[i].valid,
+                book, book.flip(1).contiguous(), ch, ch)
+
+    edge_cases = ((0, "(2,2,2)", 64), (3, "(2,2,1)", 512))
+    cases = [subm(0, (1, 3, 3), 64), subm(0, (3, 1, 1), 64), subm(3, (1, 3, 3), 512),
+             subm(3, (1, 1, 3), 512), subm(3, (3, 3, 3), 512)]
+    pairs = []
+    for e, stride, ch in edge_cases:
+        pairs += [(f"E{e} down {stride} {ch}->{ch}", lv[e].valid, edges[e].down_map,
+                   edges[e].up_map, ch, ch),
+                  (f"E{e} up {stride} {ch}->{ch}", lv[e + 1].valid, edges[e].up_map,
+                   edges[e].down_map, ch, ch)]
+    rows += gemm_phase(None, device, "cylinder", cases + pairs)
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    for name, xvalid, fwd, adj, ch, _ in pairs:
+        x = (torch.randn(xvalid.shape[0], ch, generator=gen, device=device)
+             * xvalid[:, None]).bfloat16().float()
+        w = (torch.randn(27, ch, ch, generator=gen, device=device) / (27 * ch) ** 0.5
+             ).bfloat16().float()
+        g = torch.randn(fwd.shape[0], ch, generator=gen, device=device).bfloat16().float()
+        outs = []
+        for fn in (pool_conv, plain.paired_gather_conv):
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            out = fn(xg, fwd, adj, wg)
+            out.backward(g)
+            outs.append((out.detach(), xg.grad, wg.grad))
+        rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+               for a, b in zip(*outs)]
+        log(f"pool_conv cylinder {name}: out, dX, dW rel-Frobenius {rel[0]:.3e} {rel[1]:.3e} "
+            f"{rel[2]:.3e} against paired_gather_conv")
+        if not max(rel) <= DW_TOL:
+            raise AssertionError(f"pool_conv cylinder {name}: relative errors {rel}")
+    return rows
+
+
+def cylinder_card_vs_cpu(device, card: str) -> None:
+    """`Cylinder3DRC` (f32, eval-mode batch norm) on a small input on the card
+    (kernels) and on the CPU (plain versions, the forward conv rounding its
+    operands to bf16 as the card does), the same weights: the four outputs
+    and the head's CE and Lovasz parts within REF_TOL (relative)."""
+    import copy
+
+    import torch
+
+    from gcdlss_tpu_torch.models.cylinder3d import Cylinder3DHead, Cylinder3DRC
+    from gcdlss_tpu_torch.ops import conv as plain
+    from gcdlss_tpu_torch.ops import fused_conv
+    from gcdlss_tpu_torch.ops.plan import build_unet_plan
+    from gcdlss_tpu_torch.train.common import default_caps
+
+    rng = np.random.default_rng(5)
+    cap0 = 8192
+    pts = rng.uniform([-12, -12, -2], [12, 12, 1], (6000, 3)).astype(np.float32)
+    q = np.unique(np.floor(pts / VOXEL_SIZE).astype(np.int32), axis=0)
+    coords = np.zeros((cap0, 4), np.int32)
+    coords[:len(q), 1:] = q
+    valid = np.arange(cap0) < len(q)
+    feats = rng.uniform(0, 1, (cap0, 1)).astype(np.float32) * valid[:, None]
+    labels = np.where(valid, rng.integers(0, 17, cap0), -1)
+    model = Cylinder3DRC(17, 2, generator=torch.Generator().manual_seed(0)).eval()
+
+    def card_rounding(x, nbr, w, out_dtype=torch.float32):
+        return plain.gather_conv(x.bfloat16().float(), nbr, w.bfloat16().float(), out_dtype)
+
+    outs, orig = {}, fused_conv.gather_conv
+    for dev, m in ((torch.device("cpu"), model), (device, copy.deepcopy(model).to(device))):
+        fused_conv.gather_conv = card_rounding if dev.type == "cpu" else orig
+        try:
+            with torch.no_grad():
+                plan = build_unet_plan(torch.as_tensor(coords, device=dev),
+                                       torch.as_tensor(valid, device=dev), default_caps(cap0))
+                out = m(plan, torch.as_tensor(feats, device=dev))
+                _, parts = Cylinder3DHead.loss(out["logits_known"],
+                                               torch.as_tensor(labels, device=dev),
+                                               plan.levels[0].valid)
+        finally:
+            fused_conv.gather_conv = orig
+        outs[dev.type] = {**{k: v.cpu() for k, v in out.items()},
+                          **{k: v.cpu()[None] for k, v in parts.items()}}
+    rel = {k: float(torch.linalg.vector_norm(outs["cuda"][k] - v) / torch.linalg.vector_norm(v))
+           for k, v in outs["cpu"].items()}
+    log(f"cylinder card vs CPU (Cylinder3DRC f32, {len(q)} voxels; {card}): relative "
+        f"{json.dumps(rel)}; CE {float(outs['cuda']['ce']):.6f} (CPU "
+        f"{float(outs['cpu']['ce']):.6f}), Lovasz {float(outs['cuda']['lovasz']):.6f} (CPU "
+        f"{float(outs['cpu']['lovasz']):.6f})")
+    if not all(np.isfinite(v) and v <= REF_TOL for v in rel.values()):
+        raise AssertionError(f"cylinder card vs CPU: relative errors {rel} above {REF_TOL}")
+
+
+def cylinder_stage2(device, card: str, kernels: dict, probe) -> dict:
+    """Stage 2 on Cylinder3DRC at the `bench.py` configuration (2 + 2 scans
+    of 80k points, cap0 S2_CAP0, cand_cap 4096, queue 20 x 1024 x 128, 15
+    k-means rounds, the default recipe, f32): `train_epoch` over 3 step
+    pairs, then `validate` on 4 scans."""
+    import torch
+
+    from gcdlss_tpu_torch.data import SemanticKITTIDataset
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.discover import DiscoverConfig, make_discover_config
+    from gcdlss_tpu_torch.train.modules import ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive
+
+    caps = default_caps(S2_CAP0)
+    unknown, mapping, inv, unk = label_space()
+    cfg = DiscoverConfig(**make_discover_config(
+        "SemanticKITTI", num_labeled_classes=17, num_unlabeled_classes=2, num_classes=19,
+        unknown_label=unk, voxel_caps=caps, sup_voxel_cap=CAP0, mix_voxel_caps=caps,
+        num_sup_scans=BATCH, point_cap=POINTS_PER_SCAN, voxel_size=VOXEL_SIZE,
+        arch="Cylinder3D", dtype="float32", cand_cap=4096, queue_slots=20, queue_per_slot=1024,
+        kmeans_iters=15, steps_per_epoch=1000))
+    common = dict(voxel_size=VOXEL_SIZE, downsampling=POINTS_PER_SCAN, augment=True,
+                  label_mapping=mapping, unknown_labels=unknown)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = Path(tmp)
+        write_kitti_tree(root, np.random.default_rng(6), 6 * BATCH, 2 * BATCH)
+        split = np.arange(3 * BATCH)  # labeled; the other 3 * BATCH scans are the unlabeled
+        lab = SemanticKITTIDataset(str(root), "train", split_indices=split, labeled=True,
+                                   resize_aug=True, seed=0, **common)
+        unlab = SemanticKITTIDataset(str(root), "train", split_indices=split, labeled=False,
+                                     seed=1, **common)
+        val_ds = SemanticKITTIDataset(str(root), "valid", voxel_size=VOXEL_SIZE,
+                                      label_mapping=mapping, unknown_labels=unknown)
+        module = ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive(cfg, mapping, inv, seed=0,
+                                                                device=device)
+        loaders = module.make_loaders(lab, unlab, num_workers=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probe.read()
+        for fn in kernels.values():
+            fn.launches = 0
+        module.train_epoch(*loaders)
+        torch.cuda.synchronize()
+        train = {name: fn.launches for name, fn in kernels.items()}
+        plans = probe.read()
+        vm = module.validate(val_ds, num_workers=2)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = module.step_log
+    for i, s in enumerate(steps):
+        terms = " ".join(f"{k} {s[k]:.6f}" for k in S2_LOSS_TERMS)
+        log(f"cylinder stage2 step {i}: {terms} | tau {s['tau']:.6f} n_cand {s['n_cand']:.0f} "
+            f"n_rel {s['n_rel']:.0f} has_novel {s['has_novel']:.0f} plan_overflow "
+            f"{s['plan_overflow']:.0f} | device time {s['step_ms']:.1f} ms, host time "
+            f"{s['seconds'] * 1e3:.1f} ms ({card})")
+    # three cylinder plans a step: the teacher's, the student's, the mixed forward's
+    for i, (counts, caps_) in enumerate(plans):
+        log(f"cylinder stage2 plan {i}: unique voxels per level {counts} against caps {caps_}")
+    per_step = {k: round(v / max(len(steps), 1), 2) for k, v in train.items()}
+    log(f"cylinder stage2: validate mIoU {vm['mIoU']:.6f} old {vm['mIoU_old']:.6f} new "
+        f"{vm['mIoU_new']:.6f} confusion sum {int(vm['conf'].sum())}; peak memory {peak:.3f} "
+        f"GiB ({card}); launches a step {per_step}, with validate {launches}")
+    if len(steps) != 3:
+        raise AssertionError(f"cylinder stage2: {len(steps)} train steps, expected 3")
+    bad = [(i, k) for i, s in enumerate(steps) for k in S2_LOSS_TERMS + ("tau",)
+           if not np.isfinite(s[k])]
+    if bad:
+        raise AssertionError(f"cylinder stage2: non-finite (step, term): {bad}")
+    if len(plans) != 3 * len(steps):
+        raise AssertionError(f"cylinder stage2: {len(plans)} cylinder plans in 3 steps")
+    if any(s["plan_overflow"] != 0 for s in steps):
+        raise AssertionError("cylinder stage2: a UNet plan dropped voxels")
+    if not any(s["has_novel"] == 1 for s in steps):
+        raise AssertionError("cylinder stage2: the novel branch never fired")
+    if not vm["conf"].sum() > 0:
+        raise AssertionError("cylinder stage2: empty confusion matrix")
+    if not all(train[k] > 0 for k in ("K1", "K2", "K3")) or launches["K4"]:
+        raise AssertionError(f"cylinder stage2: launches {launches}, need K1-K3, no K4")
+    return launches
+
+
+def cylinder_train(device, card: str, kernels: dict, probe) -> dict:
+    """The supervised Cylinder3D trainer at `CylinderConfig`'s defaults (2
+    scans x 80k points, caps 65,536 .. 4,096): 3 `cylinder_train_step`s,
+    then `cylinder_eval_step`."""
+    import torch
+
+    from gcdlss_tpu_torch.data import synth_scan_points
+    from gcdlss_tpu_torch.train.common import inv_label_lut
+    from gcdlss_tpu_torch.train.cylinder import (CylinderConfig, create_cylinder_state,
+                                                 cylinder_eval_step, cylinder_train_step)
+
+    _, _, inv, unk = label_space()
+    cfg = CylinderConfig(num_labeled_classes=17, num_classes=19, unknown_label=unk)
+    state = create_cylinder_state(0, cfg, device=device)
+    rng = np.random.default_rng(9)
+    s, p = cfg.num_scans, cfg.point_cap
+    labels = rng.integers(0, 19, (s, p)).astype(np.int32)
+    pts = {"xyz": torch.as_tensor(np.stack([synth_scan_points(rng, p) for _ in range(s)]),
+                                  device=device),
+           "feats": torch.as_tensor(rng.uniform(0, 1, (s, p, 3)).astype(np.float32),
+                                    device=device),
+           "labels": torch.as_tensor(labels, device=device),
+           "mapped_labels": torch.as_tensor(np.minimum(labels, unk), device=device),
+           "valid": torch.ones((s, p), dtype=torch.bool, device=device)}
+    lut = torch.as_tensor(inv_label_lut(inv, 17), device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probe.read()
+    for fn in kernels.values():
+        fn.launches = 0
+    metrics, times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = cylinder_train_step(state, pts, cfg)
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        metrics.append({k: float(v) for k, v in m.items()})
+        times.append((start.elapsed_time(end), host))
+    conf = cylinder_eval_step(state, pts, lut, cfg)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plans = probe.read()
+    for i, (m, (dev_ms, host_ms)) in enumerate(zip(metrics, times)):
+        log(f"cylinder train step {i}: loss {m['loss']:.6f} ce {m['ce']:.6f} lovasz "
+            f"{m['lovasz']:.6f} | device time {dev_ms:.1f} ms, host time {host_ms:.1f} ms "
+            f"({card})")
+    log(f"cylinder train: plan levels (unique voxels, caps) {plans[0]}; eval confusion sum "
+        f"{int(conf.sum())}; peak memory {peak:.3f} GiB ({card}); launches {launches}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"cylinder train: non-finite metrics {metrics}")
+    if not int(conf.sum()) > 0:
+        raise AssertionError("cylinder train: empty confusion matrix")
+    if not all(launches[k] > 0 for k in ("K1", "K2", "K3")) or launches["K4"]:
+        raise AssertionError(f"cylinder train: launches {launches}, need K1-K3, no K4")
+    return launches
+
+
+def cylinder_phase(device, card: str):
+    """Cylinder3D on the card: its kernels at its shapes against their plain
+    versions (`cylinder_kernel_rows`), then its two paths, each with every
+    kernel's count set to 0 just before it and read just after: Stage 2 on
+    Cylinder3DRC (`cylinder_stage2`) and the supervised trainer
+    (`cylinder_train`); then `cylinder_card_vs_cpu`. Returns (kernel rows,
+    launches per path and in all)."""
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    rows = cylinder_kernel_rows(device)
+    with CylPlanProbe() as probe:
+        launches = {"stage2": cylinder_stage2(device, card, kernels, probe),
+                    "train": cylinder_train(device, card, kernels, probe)}
+    cylinder_card_vs_cpu(device, card)
+    launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -2108,6 +2459,7 @@ def main() -> int:
     launches_var = phase("stage2 variants", stage2_variants_phase, device, card)
     peaks_remat = phase("remat", remat_phase, device, card)
     launches_nops = phase("nops", nops_phase, device, card)
+    cyl_rows, launches_cyl = phase("cylinder", cylinder_phase, device, card)
     launches_cli = phase("cli", cli_phase, device, card)
     launches_dq = phase("discovery quality", discovery_phase, device, card)
     log(f"phases (wall s): {json.dumps({k: round(v, 1) for k, v in wall.items()})}; "
@@ -2116,10 +2468,12 @@ def main() -> int:
     # four; `launches_stage1` the Stage-1 path, `launches_stage15` the
     # Stage-1.5 phase, `launches_variants` the Stage-2 variants together,
     # `launches_nops` the four single-model recipes together, `launches_cli`
-    # the CLI's sixteen runs together, `launches_quality` the discovery-quality
-    # run), P1-P4 in
+    # the CLI's eighteen runs together, `launches_quality` the discovery-quality
+    # run, `launches_cylinder` the Cylinder3D Stage-2 and trainer paths
+    # together), P1-P4 in
     # the tool's main run (their only path; K1's launches there are
     # `launches_parts`)
+    rows += cyl_rows
     for r in rows:
         r["launches"] = launches_s2[r["name"][:2]]
         r["launches_stage1"] = launches_s1[r["name"][:2]]
@@ -2127,6 +2481,7 @@ def main() -> int:
         r["launches_variants"] = launches_var["total"][r["name"][:2]]
         r["launches_nops"] = launches_nops["total"][r["name"][:2]]
         r["launches_quality"] = launches_dq[r["name"][:2]]
+        r["launches_cylinder"] = launches_cyl["total"][r["name"][:2]]
         if r["name"][:2] == "K1":
             r["launches_parts"] = launches_parts["K1"]
     for r in part_rows:
@@ -2137,7 +2492,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("launches_stage1", "launches_stage15", "launches_variants", "launches_nops",
-             "launches_cli", "launches_quality", "launches_parts",
+             "launches_cli", "launches_quality", "launches_cylinder", "launches_parts",
              "bound_measured_ms",
              "bound_dense_ms", "fill",
              "far_entries",

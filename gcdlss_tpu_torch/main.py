@@ -37,7 +37,7 @@ from argparse import ArgumentParser
 import numpy as np
 
 SEED = 1234
-_ITEM7 = "ROADMAP Queue 1 item 7, Cylinder3D and the mmdet3d-style stack"
+CYLINDER_FEAT_DIM = 128  # Cylinder3DRC's features: 4 x its 32 base channels
 
 
 def resolve_discover_overrides(module_name: str, dataset: str) -> dict:
@@ -179,11 +179,14 @@ def main(argv=None) -> dict:
     cfg = load_config(args.dataset_config, **overrides)
     if args.set_deterministic:
         np.random.seed(SEED)
-    if cfg.arch == "Cylinder3D":
-        raise NotImplementedError(f"--arch Cylinder3D is not ported yet ({_ITEM7})")
-    if cfg.arch not in ARCHS:
+    cylinder = cfg.arch == "Cylinder3D"
+    if cfg.arch not in ARCHS and not cylinder:
         raise ValueError(f"--arch must be one of {sorted(ARCHS)} or Cylinder3D, got {cfg.arch!r}")
     recipe, mod_overrides = resolve_module(cfg.module)
+    if cylinder and recipe != "discover":
+        # as in `main.py`, whose other recipes look the arch up in the MinkUNet table
+        raise ValueError(f"--arch Cylinder3D takes only the Stage-2 discovery recipes (the "
+                         f"Merge/Discover family); {cfg.module} is a {recipe} recipe")
 
     space = cfg.label_space()
     print(f"Unknown labels in split {cfg.split}:")
@@ -200,7 +203,8 @@ def main(argv=None) -> dict:
     mapping, inv = space["label_mapping"], space["label_mapping_inv"]
     data_kw = dict(label_mapping=mapping, unknown_labels=space["unknown_labels"])
     # the queue holds backbone features: a bottleneck's are 4x wider
-    feat_dim = DEFAULT_PLANES[7] * BLOCKS[ARCHS[cfg.arch][0]][1]
+    feat_dim = (CYLINDER_FEAT_DIM if cylinder
+                else DEFAULT_PLANES[7] * BLOCKS[ARCHS[cfg.arch][0]][1])
 
     logger = MetricsLogger(cfg.log_dir, cfg.experiment)
     ds_cls = get_dataset(cfg.dataset, "disjoint")

@@ -50,6 +50,34 @@ def gather_conv_backward(x: torch.Tensor, g: torch.Tensor, adj: torch.Tensor, w:
     return dx, dw
 
 
+class _PairedGatherConv(torch.autograd.Function):
+    """Forward over `nbr_fwd`, dX and dW over the partner book `nbr_adj`."""
+
+    @staticmethod
+    def forward(ctx, x, nbr_fwd, nbr_adj, w):
+        ctx.save_for_backward(x, nbr_adj, w)
+        return gather_conv(x, nbr_fwd, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, nbr_adj, w = ctx.saved_tensors
+        dx, dw = gather_conv_backward(x, g, nbr_adj, w, need_dx=ctx.needs_input_grad[0])
+        return None if dx is None else dx.to(x.dtype), None, None, dw.to(w.dtype)
+
+
+def paired_gather_conv(x: torch.Tensor, nbr_fwd: torch.Tensor, nbr_adj: torch.Tensor,
+                       w: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Strided sparse conv with an explicit adjoint book, plain (f32 sums):
+    out[o] = sum_d x[nbr_fwd[o, d]] @ W[d]; the backward gathers the
+    cotangent through `nbr_adj` at the same offset index, which must list
+    the same (o, f, d) triples from the input side (`ops.asym`'s down and up
+    maps, in either role order), as the JAX package's custom VJP does. The
+    card's route is `fused_conv.pool_conv` (K1, and K2 over the partner
+    book)."""
+    out = _PairedGatherConv.apply(x, nbr_fwd, nbr_adj, w)
+    return out if bias is None else out + bias.float()
+
+
 def strips_kept_plain(nbr: torch.Tensor, rows: int = 16) -> torch.Tensor:
     """What K1 visits: bool [ceil(N_out / rows), K], true where the strip of
     `rows` consecutive output rows holds a present entry at that offset. The

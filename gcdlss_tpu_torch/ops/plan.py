@@ -46,6 +46,9 @@ def _offsets(k: int) -> np.ndarray:
     return np.array(list(itertools.product(r, r, r)), dtype=np.int32)
 
 
+KERNEL_OFFSETS_3 = _offsets(3)  # [27, 3], z fastest: the column order of every k=3 map
+
+
 class LevelPlan(NamedTuple):
     coords: torch.Tensor  # [cap, 4] int32 (b, x, y, z) in stride units
     valid: torch.Tensor  # [cap] bool

@@ -26,8 +26,10 @@ Every variant of the JAX step runs (`check_config` names the values):
     "point" (the points mixed and re-quantized, the reference's protocol
     and the voxel mode's oracle; needs the point batches);
   * use_lion: the Gambler and energy losses in place of the calibration.
-Linear heads, MinkUNet backbones. The k^3 neighbor maps go through K3
-(`plan_kernel=2`) or K4 (`plan_kernel=1`).
+Linear heads, on a MinkUNet backbone or, with `arch="Cylinder3D"`, on
+`Cylinder3DRC` (f32 whatever `dtype` says, as in the JAX package). The k^3
+neighbor maps of the UNet plans go through K3 (`plan_kernel=2`) or K4
+(`plan_kernel=1`); the cylinder plan's through K3.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..eval.metrics import confusion_update
 from ..losses import (adaptive_threshold_loss, calibration_loss, cross_entropy, mse_prob_loss,
                       soft_cross_entropy)
 from ..losses_lion import energy_loss, gambler_loss
+from ..models.cylinder3d import Cylinder3DRC
 from ..models.minkunet import (DEFAULT_PLANES, MinkUNetRC, assemble_dummy_logits,
                                assemble_dummy_logits_from_heads, assemble_novel_logits)
 from ..ops.plan import PLAN_KERNELS, build_unet_plan, plan_capacity_overflow
@@ -149,8 +152,8 @@ def check_config(cfg: DiscoverConfig) -> None:
 
 @dataclass
 class DiscoverState:
-    student: MinkUNetRC
-    teacher: MinkUNetRC  # EMA of the student's parameters; its own BN statistics
+    student: MinkUNetRC | Cylinder3DRC
+    teacher: MinkUNetRC | Cylinder3DRC  # EMA of the student's parameters; its own BN statistics
     tau: nn.Parameter  # learnable NCC logit threshold, trained with the student
     optimizer: torch.optim.Optimizer  # SGD over the student's parameters and tau
     queue: FeatureQueue
@@ -158,8 +161,17 @@ class DiscoverState:
     step: int = 0
 
 
-def make_model(cfg: DiscoverConfig, generator: torch.Generator | None = None) -> MinkUNetRC:
+def make_model(cfg: DiscoverConfig,
+               generator: torch.Generator | None = None) -> MinkUNetRC | Cylinder3DRC:
+    """The student: `MinkUNetRC`, or `Cylinder3DRC` for `arch="Cylinder3D"`
+    (f32 and its own widths: `dtype`, `planes` and `remat` do not apply;
+    `feat_dim` must be 128, 4 x its base channels). As in the JAX package,
+    `Cylinder3DRC` keeps its own 0.05 m for the voxel centres it feeds the
+    VFE, whatever `voxel_size` says."""
     check_config(cfg)
+    if cfg.arch == "Cylinder3D":
+        return Cylinder3DRC(cfg.num_labeled_classes, cfg.num_unlabeled_classes, cfg.ncc_heads,
+                            in_channels=cfg.in_channels, generator=generator)
     return MinkUNetRC(cfg.num_labeled_classes, cfg.num_unlabeled_classes, cfg.ncc_heads,
                       arch=cfg.arch, planes=cfg.planes, in_channels=cfg.in_channels,
                       dtype=getattr(torch, cfg.dtype), generator=generator, remat=cfg.remat)
@@ -171,14 +183,17 @@ def create_discover_state(seed: int, cfg: DiscoverConfig, pretrained: dict | Non
     copy as the teacher, tau, SGD, an empty queue and the step's generator,
     on the card unless `device` names another (`resolve_device`).
 
-    `pretrained`: a Stage-1 `MinkUNetSeg` state dict; its backbone and
-    `final` parameters warm-start the student (`utils.weights.warm_start`)."""
+    `pretrained`: a Stage-1 `MinkUNetSeg` state dict, or for Cylinder3D a
+    `Cylinder3DRC` one; its backbone and `final` parameters warm-start the
+    student (`utils.weights.warm_start`), as the JAX package copies the
+    `encoder` and `final` trees: the VFE, `final2` and `final3` stay fresh."""
     from ..utils.weights import warm_start
 
     device = resolve_device(device)
     student = make_model(cfg, torch.Generator().manual_seed(seed))
     if pretrained is not None:
-        warm_start(student, pretrained)
+        warm_start(student, {k: v for k, v in pretrained.items() if k.startswith("encoder.")
+                             and not k.startswith(("encoder.final2.", "encoder.final3."))})
     student = student.to(device)
     teacher = copy.deepcopy(student)
     teacher.requires_grad_(False)

@@ -1,5 +1,5 @@
-"""Carry weights into a port `MinkUNetSeg` or `MinkUNetRC`, and a JAX
-Stage-2 state into a port `DiscoverState`.
+"""Carry weights into a port `MinkUNetSeg`, `MinkUNetRC`, `Cylinder3DRC` or
+`MultiHeadCylinder3D`, and a JAX Stage-2 state into a port `DiscoverState`.
 
 Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
 
@@ -11,7 +11,9 @@ Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
     `downsample.0`, BN `scale` -> `weight`; a bottleneck's `conv1` / `conv3`
     dense and `conv2` sparse kernels keep their names; the heads `final`,
     `final2`, `final3` -> `encoder.final*`, linear (`kernel`, `bias`) or
-    cosine (`weight`)). `state_dict_to_jax` is the way back.
+    cosine (`weight`)). `state_dict_to_jax` is the way back. A Cylinder3D
+    tree keeps its names (`cylinder_jax_to_state_dict`, and back
+    `cylinder_state_dict_to_jax`).
   * `load_jax_discover_state`: a whole JAX `DiscoverState` (student and
     teacher trees, tau, queue, step) -> a port `DiscoverState`.
   * `warm_start`: the Stage-1 -> Stage-1.5 / Stage-2 warm start from a port
@@ -165,10 +167,72 @@ def state_dict_to_jax(sd: dict) -> tuple:
     return params, stats
 
 
+def _is_cylinder_tree(params: dict) -> bool:
+    """A JAX `Cylinder3DRC` (`vfe`) or `MultiHeadCylinder3D` (`backbone`) tree."""
+    return "vfe" in params or "backbone" in params
+
+
+def cylinder_jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
+    """Port state-dict keys -> numpy arrays from a JAX Cylinder3D tree. The
+    port's modules carry the JAX names, so a path is the tree's path joined
+    by dots; batch norms take `weight`/`bias`/`running_mean`/`running_var`,
+    and `Cylinder3DRC`'s heads `final*` sit under `encoder.`, as
+    `MinkUNetRC`'s do. Kernels keep their layouts: [K, Ci, Co] sparse ones
+    in offset order (z fastest), [Ci, Co] dense ones."""
+    out = {}
+
+    def walk(path: str, p: dict, s: dict) -> None:
+        if "scale" in p:  # batch norm; a gradient tree has no statistics
+            for ours, theirs, tree in _BN:
+                src = p if tree == "params" else s
+                if theirs in src:
+                    out[f"{path}.{ours}"] = src[theirs]
+            return
+        for name, v in p.items():
+            if isinstance(v, dict):
+                walk(f"{path}.{name}", v, s.get(name, {}))
+            else:
+                out[f"{path}.{name}"] = v
+
+    for top, sub in params.items():
+        walk(f"encoder.{top}" if top.startswith("final") else top, sub,
+             batch_stats.get(top, {}))
+    return out
+
+
+def cylinder_state_dict_to_jax(sd: dict) -> tuple:
+    """A port `Cylinder3DRC` / `MultiHeadCylinder3D` state dict -> the JAX
+    package's (`params`, `batch_stats`) trees of numpy arrays, the inverse
+    of `cylinder_jax_to_state_dict`."""
+    params: dict = {}
+    stats: dict = {}
+    groups: dict = {}
+    for key, v in sd.items():
+        path, field = key.rsplit(".", 1)
+        groups.setdefault(path, {})[field] = np.asarray(
+            v.detach().cpu() if hasattr(v, "detach") else v)
+    for path, fields in groups.items():
+        parts = path.split(".")
+        if parts[0] == "encoder" and parts[1].startswith("final"):
+            parts = parts[1:]
+        if "running_mean" in fields:
+            trees = [(params if tree == "params" else stats, theirs, fields[ours])
+                     for ours, theirs, tree in _BN]
+        else:
+            trees = [(params, name, v) for name, v in fields.items()]
+        for tree, name, v in trees:
+            for k in parts:
+                tree = tree.setdefault(k, {})
+            tree[name] = v
+    return params, stats
+
+
 def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
-    """Load the JAX package's trees into `model` (every tensor must match)."""
+    """Load the JAX package's trees into `model` (every tensor must match):
+    a MinkUNet's or a Cylinder3D model's."""
+    to_sd = cylinder_jax_to_state_dict if _is_cylinder_tree(params) else jax_to_state_dict
     sd = {k: torch.as_tensor(np.array(v, np.float32))
-          for k, v in jax_to_state_dict(params, batch_stats).items()}
+          for k, v in to_sd(params, batch_stats).items()}
     model.load_state_dict(sd, strict=True)
 
 

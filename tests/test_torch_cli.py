@@ -10,7 +10,8 @@ round trips; a resumed Stage-1 run against an unbroken one, bit for bit; the
 Stage-1 -> 1.5 / 2 handoff and `--test` through the CLI; the single-model
 discovery recipes (a resumed SwaV run bit-equal to an unbroken one),
 ExpClusterFineTuning and ExpMixExtraTest's subdivided sweep through the
-CLI; the one refusal left (Cylinder3D); and one Stage-1 epoch of the CLI's
+CLI; Stage 2 on `--arch Cylinder3D` and its `--test`, and its refusal of a
+Stage-1 module; and one Stage-1 epoch of the CLI's
 loop against the JAX loop from the same weights and batches (one compiled
 JAX step), within 1e-5 relative.
 """
@@ -415,15 +416,30 @@ def test_stage2_recipes_train_through_the_cli(tree, stage1):
     ("--module", "ExpMixExtraTest"),
 ], ids=["nops", "cylinder3d", "cluster", "subdivide"])
 def test_unported_recipes_raise_naming_roadmap(tree, stage1, extra):
-    """`--arch Cylinder3D` still raises, naming its ROADMAP item. The recipes
-    refused beside it until the single-model discovery family and the last
-    Stage-1.5 variants were ported now run on the CPU from Stage 1's
-    handoff: ExpDiscover and ExpClusterFineTuning an epoch (finite metrics,
-    the epoch's checkpoint and the handoff written), ExpMixExtraTest its
-    subdivided sweep (every threshold scored)."""
+    """The recipes this CLI once refused, each naming its ROADMAP item, now
+    run on the CPU. `--arch Cylinder3D` trains a Stage-2 epoch of the
+    default recipe on `Cylinder3DRC` (finite metrics, the epoch's
+    checkpoint written), and `--test` on that state gives the epoch's
+    validation mIoU; with a Stage-1 module it raises a ValueError that
+    names the Stage-2 discovery recipes. From Stage 1's handoff,
+    ExpDiscover and ExpClusterFineTuning train an epoch (finite metrics,
+    the epoch's checkpoint and the handoff written) and ExpMixExtraTest
+    runs its subdivided sweep (every threshold scored)."""
     if "Cylinder3D" in extra:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 7"):
+        with pytest.raises(ValueError, match=r"only the Stage-2 discovery recipes"):
             cli.main(_argv(tree, "refused", *extra))
+        s2 = ("--module", "ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive", "--arch",
+              "Cylinder3D", "--batch_size", "4", "--voxel_cap", "4096")
+        run = cli.main(_argv(tree, "s2-cyl", *s2, "--epochs", "1"))
+        module = run["module"]
+        assert module.cfg.arch == "Cylinder3D" and module.cfg.feat_dim == 128
+        assert type(module.state.student).__name__ == "Cylinder3DRC"
+        assert len(module.step_log) == 1
+        assert all(np.isfinite(v) for v in module.step_log[0].values())
+        assert tck.CheckpointManager(str(tree / "ck" / "s2-cyl")).all_steps() == [1]
+        tested = cli.main(_argv(tree, "s2-cyl", *s2, "--test", "--checkpoint",
+                                str(tree / "ck" / "s2-cyl")))
+        assert tested["result"]["mIoU"] == run["history"][-1]["valid/mIoU"]
         return
     exp = f"ran-{extra[1]}"
     run = cli.main(_argv(tree, exp, *extra, "--epochs", "1", "--pretrained",

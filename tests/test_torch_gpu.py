@@ -68,13 +68,38 @@ def _for_each(cases, check) -> None:
 
 def test_gather_gemm_matches_plain(plan):
     """K1 and K2 on the plan's books: the stem, a k3 level, a down and an up
-    pool, each against the plain versions."""
+    pool, and on a cylinder plan of the plan's voxels (Cylinder3D): a K = 9
+    and a K = 3 column subset of a level map (adjoint: the reversed book)
+    and the 27-column paired books of a (2, 2, 2) and a (2, 2, 1) edge in
+    both role orders, each against the plain versions."""
     _for_each([(plan, 1, 32, "stem"), (plan, 192, 96, "k3"), (plan, 32, 32, "down"),
-               (plan, 64, 48, "up")], _check_gather_gemm_book)
+               (plan, 64, 48, "up"), (plan, 64, 64, "cyl_k9"), (plan, 512, 512, "cyl_k3"),
+               (plan, 64, 64, "cyl_down0"), (plan, 64, 64, "cyl_up0"),
+               (plan, 256, 256, "cyl_down2"), (plan, 256, 256, "cyl_up2")],
+              _check_gather_gemm_book)
+
+
+def _cylinder_books(plan, kind: str):
+    """(book, adjoint, x validity) of a Cylinder3D conv on the cylinder plan
+    of the plan's level-0 voxels, taken as (b, rho, phi, z) bins."""
+    from gcdlss_tpu_torch.models.cylinder3d import build_cyl_plan
+
+    lvl0 = plan.levels[0]
+    cyl = build_cyl_plan(lvl0.coords, lvl0.valid, CAPS)
+    lv, edges = cyl.levels, cyl.edges
+    if kind in ("cyl_k9", "cyl_k3"):
+        book = lv[0 if kind == "cyl_k9" else 1].books[(1, 3, 3) if kind == "cyl_k9" else (3, 1, 1)]
+        return book, book.flip(1), lv[0 if kind == "cyl_k9" else 1].valid
+    e = int(kind[-1])
+    if kind.startswith("cyl_down"):
+        return edges[e].down_map, edges[e].up_map, lv[e].valid
+    return edges[e].up_map, edges[e].down_map, lv[e + 1].valid
 
 
 def _check_gather_gemm_book(plan, ci: int, co: int, kind: str) -> None:
-    if kind == "stem":
+    if kind.startswith("cyl"):
+        nbr, adj, valid = _cylinder_books(plan, kind)
+    elif kind == "stem":
         nbr, adj, valid = plan.stem_nbr, plan.stem_nbr.flip(1), plan.levels[0].valid
     elif kind == "k3":
         nbr, adj, valid = plan.levels[1].nbr3, plan.levels[1].nbr3.flip(1), plan.levels[1].valid

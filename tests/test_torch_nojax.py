@@ -55,7 +55,10 @@ def test_port_imports_no_jax():
             "gcdlss_tpu_torch.losses_lion", "gcdlss_tpu_torch.ops.voxelize",
             "gcdlss_tpu_torch.eval.ioueval", "gcdlss_tpu_torch.eval.clustering_eval",
             "gcdlss_tpu_torch.algo.dbscan", "gcdlss_tpu_torch.train.nops",
-            "gcdlss_tpu_torch.tools.discovery_quality"} <= set(names)
+            "gcdlss_tpu_torch.tools.discovery_quality", "gcdlss_tpu_torch.ops.asym",
+            "gcdlss_tpu_torch.ops.scatter", "gcdlss_tpu_torch.ops.lovasz",
+            "gcdlss_tpu_torch.models.voxelizer", "gcdlss_tpu_torch.models.cylinder3d",
+            "gcdlss_tpu_torch.train.cylinder"} <= set(names)
     proc = _run("import importlib, sys\n"
                 f"for n in {names!r}: importlib.import_module(n)\n" + REPORT_FORBIDDEN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
