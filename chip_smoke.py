@@ -5,6 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+or, for one of the last two phases alone after the build and the rates (no
+kernels line, no last line), `python3 chip_smoke.py --only library` or
+`--only dp`.
+
 Phases, each of which raises on failure:
 
   1. build: compile `gcdlss_tpu_torch/csrc/*.cu` with nvcc, one process per
@@ -119,7 +123,24 @@ Phases, each of which raises on failure:
  10. discovery quality (`discovery_phase`): `tools/discovery_quality.py` on
      the card, Stage 1 (12 epochs) then the default Stage-2 recipe (15) on
      the learnable synthetic tree through the CLI; fails unless the last
-     mIoU_new reaches 0.10 and the best mIoU_old exceeds the first.
+     mIoU_new reaches 0.10 and the best mIoU_old exceeds the first;
+ 11. library models (`library_phase`): one plan at the Stage-2 shapes; K1/K2
+     at the mmdet3d backbone's new shapes (k3 stem 1 -> 32 at L0, 384 -> 256
+     at L3, 128 -> 96 at L0) against their plain versions; then a
+     train-mode forward + backward (CE + SupCon + DINO distillation) of
+     MultiHeadMinkUnet18 at its reference widths and of every wrapper and
+     ORCA model at its default planes (step ms, peak, launches), and in
+     eval mode their outputs with the kernels against the same model on the
+     plain versions on the card, relative <= REF_TOL, the gradients within
+     GRAD_TOL, and as a vector and leaf by leaf no farther from the f32
+     gradient than the plain route's (F32_TOL);
+ 12. data parallelism (`dp_phase`): (a) one NCCL rank in this process, the
+     Stage-1 and Stage-2 steps with the group bit for bit those without;
+     (b) two processes on the card over gloo with CUDA tensors, 1 + 1
+     scans each, against the one-process 2 + 2 step: the ranks the same
+     bits, on a plain f32 route counts equal and states within the CPU
+     test's tolerances, on the kernels (bf16) losses, counts and states
+     within DP_BF16_TOL.
   Phase 2 also holds K1/K2 at MinkUNet50's pool-conv widths (downs 128,
   256, 512 channels; ups 1,024 -> 256, 1,024 -> 128, 512 -> 96, 384 -> 96)
   on the Stage-1 plan, and phase 4 runs the reference forward in bf16 and
@@ -129,7 +150,8 @@ Phases, each of which raises on failure:
 Each path (the tool's `main`, the Stage-1 slice, each run of the Stage-1.5
 slice, the Stage-2 slice, each Stage-2 variant, each single-model recipe,
 Cylinder3D's Stage-2 run and its trainer, each CLI run, the
-discovery-quality run) sets every kernel's launch count to
+discovery-quality run, each library model's step, the data-parallel runs)
+sets every kernel's launch count to
 0 just before it and reads it just after: each kernel of its path must have
 launched.
 Every kernel row carries its bound, the least time the card could take for
@@ -148,6 +170,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -2410,9 +2433,550 @@ def cylinder_phase(device, card: str):
     return rows, launches
 
 
+# ---- the library models and loss zoo (library_phase)
+
+LIBRARY_ROWS = 4096  # valid rows of the SupCon and distillation terms
+# The library models' gradient, kernels vs plain on the card, relative:
+# about twice the largest of the seven models' (bf16: MinkUnet34ORCA's
+# 2.05e-2; f32 route: DualMinkUnet's 5.7e-3; three runs the same bits,
+# NVIDIA H100 80GB HBM3, 700 W).
+GRAD_TOL = {"bfloat16": 4e-2, "float32": 1.5e-2}
+# The kernels' relative distance from the f32 gradient over the plain
+# route's: the whole vector's at most `vector` times (measured: at most
+# 1.045), each leaf's at most `leaf` times plus `floor` (measured: every
+# leaf within 2x less 4e-4; the BN weights and biases of the deep blocks,
+# whose gradients nearly cancel, 0.1-0.36 from f32 on both routes).
+F32_TOL = {"vector": 1.25, "leaf": 2.0, "floor": 5e-3}
+
+
+def mm_cases(plan) -> list:
+    """(name, x rows, book, adjoint, Ci, Co) of the mmdet3d backbone's convs
+    no MinkUNet34 conv has: its k3 stem at one input channel, and the first
+    decoder blocks' k3 convs after the lateral concat (384 -> 256 at L3,
+    128 -> 96 at L0)."""
+    lv = plan.levels
+    return [(name, lv[i].valid, lv[i].nbr3, lv[i].nbr3.flip(1), ci, co)
+            for name, i, ci, co in (("MM stem L0 k3 1->32", 0, 1, 32),
+                                    ("MM dec0 L3 k3 384->256", 3, 384, 256),
+                                    ("MM dec3 L0 k3 128->96", 0, 128, 96))]
+
+
+class plain_convs:
+    """Inside, the sparse convs' autograd Functions call the plain K1/K2
+    (`ops.conv`) in place of the kernels, on the card. `round_operands`
+    keeps the f32 route's bf16 rounding of x and W (the kernels' inputs);
+    without it an f32 model stays f32 throughout."""
+
+    def __init__(self, round_operands: bool = True):
+        self.round_operands = round_operands
+
+    def __enter__(self):
+        import torch
+
+        from gcdlss_tpu_torch.ops import conv as plain
+        from gcdlss_tpu_torch.ops import fused_conv
+
+        self.saved = (fused_conv.gather_gemm, fused_conv.gather_gemm_backward,
+                      fused_conv._kernel_operands)
+        fused_conv.gather_gemm = (lambda x, nbr, w, out_dtype=torch.float32:
+                                  plain.gather_conv(x, nbr, w, out_dtype))
+        fused_conv.gather_gemm_backward = (
+            lambda x, g, adj, w, out_dtype=torch.float32, reverse=False, need_dx=True:
+            plain.gather_conv_backward(x, g, adj.flip(1) if reverse else adj, w, out_dtype,
+                                       need_dx))
+        if not self.round_operands:
+            fused_conv._kernel_operands = lambda x, w: (x, w.to(x.dtype), x.dtype)
+        return self
+
+    def __exit__(self, *exc):
+        from gcdlss_tpu_torch.ops import fused_conv
+
+        (fused_conv.gather_gemm, fused_conv.gather_gemm_backward,
+         fused_conv._kernel_operands) = self.saved
+        return False
+
+
+def library_models() -> list:
+    """(name, factory(dtype)) of every library model at its reference
+    widths: the mmdet3d MultiHeadMinkUnet18 (base 32, encoder 32/64/128/256
+    x 2, decoder 256/128/96/96 x 2, 3 heads, over-clustering 3) and the
+    wrappers and ORCA models at their default planes, with the dtype the
+    path runs them in: bf16 for those that take a `dtype` (the other
+    factories ignore it and build f32 backbones, the convs' f32 route)."""
+    import torch
+
+    from gcdlss_tpu_torch.models import backbone_mm, orca, wrappers
+
+    g = lambda i: torch.Generator().manual_seed(i)
+    return [
+        ("MultiHeadMinkUnet18", lambda dt: backbone_mm.MultiHeadMinkUnet18(
+            17, 2, num_heads=3, overcluster_factor=3, dtype=dt, generator=g(0)),
+         torch.bfloat16),
+        ("MultiHeadMinkUnet", lambda dt: wrappers.MultiHeadMinkUnet(
+            17, 2, num_heads=3, overcluster_factor=3, dtype=dt, generator=g(1)),
+         torch.bfloat16),
+        ("DualMinkUnet", lambda dt: wrappers.DualMinkUnet(17, 2, generator=g(2)),
+         torch.float32),
+        ("MinkUnet34ORCA", lambda dt: orca.MinkUnet34ORCA(17, dtype=dt, generator=g(3)),
+         torch.bfloat16),
+        ("MinkUnetToy18", lambda dt: orca.MinkUnetToy18(17, dtype=dt, generator=g(4)),
+         torch.bfloat16),
+        ("MultiHeadSelfSupMinkUnet", lambda dt: wrappers.MultiHeadSelfSupMinkUnet(
+            simgcd=True, generator=g(5)), torch.float32),
+        ("MultiHeadMinkUnetFineTune", lambda dt: wrappers.MultiHeadMinkUnetFineTune(
+            17, 19, generator=g(6)), torch.float32),
+    ]
+
+
+def library_loss(out: dict, labels, lab_mask, valid0, rows):
+    """`losses.cross_entropy` of the labeled head on the labeled rows, plus
+    `losses_zoo.supcon_loss` over `rows`' normalised features (one view,
+    their labels; each backbone's features, both of `DualMinkUnet`'s), plus
+    `losses_zoo.distill_loss` from one head to another: the first two
+    unlabeled heads where a model has them, else the labeled head to itself
+    across its two crops of `rows`."""
+    import torch
+
+    from gcdlss_tpu_torch.losses import cross_entropy
+    from gcdlss_tpu_torch.losses_zoo import distill_loss, supcon_loss
+
+    logits = out["logits_lab"] if "logits_lab" in out else out["logits"]
+    l_ce = cross_entropy(logits, torch.where(lab_mask, labels, -1), valid0)
+    l_sc = 0.0
+    for key in ("feats", "feats_a", "feats_b"):
+        if key in out:
+            f = out[key][rows].float()
+            f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True).clamp(min=1e-12)
+            l_sc = l_sc + supcon_loss(f[:, None], labels=labels[rows])
+    heads = out.get("logits_unlab")
+    student, teacher = ((heads[0][rows], heads[1][rows]) if heads is not None and heads.dim() == 3
+                        else (logits[rows], logits[rows]))
+    l_d = distill_loss(student, teacher, 5, warmup_teacher_temp_epochs=10, nepochs=50)
+    return l_ce + l_sc + l_d
+
+
+def _rel(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+
+
+def library_phase(device, card: str):
+    """The library models on the card, on one plan at the `bench.py` shapes
+    (2 + 2 synthetic scans, cap0 = S2_CAP0, `default_caps`): K1/K2 at the
+    mmdet3d backbone's new shapes (`mm_cases`) against their plain versions;
+    then for each model of `library_models` a train-mode forward and
+    backward of `library_loss` in its dtype with every kernel's count set
+    to 0 just before it and read just after (step ms, peak GiB), and, in
+    eval mode on the same weights in f32, the outputs and every gradient
+    with the kernels against the same model on the plain versions on the
+    card (`plain_convs`), in its dtype: outputs relative <= REF_TOL, as
+    `reference_phase`; the gradient vector relative <= GRAD_TOL. The two
+    differ by the order of f32 sums, which flips bf16 roundings of the
+    activations (and of the operands on the f32 route), so the gradient is
+    also held leaf by leaf against the f32 gradient (the plain route without
+    any bf16 rounding): the kernels' distance from it, of the vector and of
+    each leaf, within F32_TOL of the plain route's. A second kernels run
+    gives the run-to-run spread. Returns (kernel rows, launches per model
+    and in all)."""
+    import torch
+
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan import plan_capacity_overflow
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+    from gcdlss_tpu_torch.tools.stage2_split import synthetic_sides
+    from gcdlss_tpu_torch.train.common import default_caps, plan_and_gather
+    from gcdlss_tpu_torch.train.discover import DiscoverConfig, _combine_batches
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    caps = default_caps(S2_CAP0)
+    sup, unsup = synthetic_sides(device)
+    combine_cfg = DiscoverConfig(num_labeled_classes=17, num_unlabeled_classes=2,
+                                 num_classes=19, unknown_label=17, voxel_caps=caps,
+                                 sup_voxel_cap=CAP0, mix_voxel_caps=caps, num_sup_scans=BATCH,
+                                 point_cap=POINTS_PER_SCAN)
+    batch = _combine_batches(sup, unsup, combine_cfg)
+    plan, feats0, _, labels = plan_and_gather(batch, caps)
+    overflow = int(plan_capacity_overflow(plan))
+    valid0 = plan.levels[0].valid
+    lab_mask = valid0 & (plan.rep < CAP0)
+    gen = torch.Generator(device=device).manual_seed(11)
+    vrows = torch.nonzero(valid0).squeeze(1)
+    rows = vrows[torch.randperm(vrows.shape[0], generator=gen, device=device)[:LIBRARY_ROWS]]
+    log(f"library plan: caps {caps}, unique voxels {[int(lv.count) for lv in plan.levels]}, "
+        f"plan overflow {overflow}")
+    if overflow:
+        raise AssertionError(f"library: the plan dropped {overflow} voxels")
+    krows = gemm_phase(plan, device, "library", mm_cases(plan))
+
+    launches = {}
+    for name, make, dtype in library_models():
+        model = make(dtype).to(device).train()
+        # one untimed pass first: the first use of a model's shapes allocates
+        library_loss(model(plan, feats0), labels, lab_mask, valid0, rows).backward()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        # the path: the plan (the same books again), the forward, the backward
+        plan = plan_and_gather(batch, caps)[0]
+        loss = library_loss(model(plan, feats0), labels, lab_mask, valid0, rows)
+        loss.backward()
+        end.record()
+        torch.cuda.synchronize()
+        launches[name] = {k: fn.launches for k, fn in kernels.items()}
+        ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated() / 2 ** 30
+        train_loss = loss.item()
+
+        model.eval()
+        truth = model
+        if dtype != torch.float32:
+            truth = make(torch.float32).to(device).eval()
+            truth.load_state_dict(model.state_dict())
+        dname = str(dtype).removeprefix("torch.")
+        runs = {}
+        for tag, m, route in (("kernels", model, contextlib.nullcontext()),
+                              ("kernels again", model, contextlib.nullcontext()),
+                              ("plain", model, plain_convs()),
+                              ("f32", truth, plain_convs(round_operands=False))):
+            m.zero_grad(set_to_none=True)
+            with route:
+                out = m(plan, feats0)
+                loss = library_loss(out, labels, lab_mask, valid0, rows)
+                loss.backward()
+            # the heads the loss does not read have no gradient, in every run
+            runs[tag] = ({k: v.detach() for k, v in out.items()}, loss.detach(),
+                         {k: p.grad.detach().float().clone() for k, p in m.named_parameters()
+                          if p.grad is not None})
+        (out_k, loss_k, g_k), (_, _, g_k2), (out_p, loss_p, g_p), (_, _, g_t) = runs.values()
+        rel = {k: _rel(out_k[k], v) for k, v in out_p.items()}
+        rel["loss"] = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        flat = lambda g: torch.cat([v.reshape(-1) for v in g.values()])
+        grad = {"kernels vs plain": _rel(flat(g_k), flat(g_p)),
+                "kernels run to run": _rel(flat(g_k2), flat(g_k)),
+                "kernels vs f32": _rel(flat(g_k), flat(g_t)),
+                "plain vs f32": _rel(flat(g_p), flat(g_t))}
+        # leaf by leaf: the kernels' distance from the f32 gradient over the
+        # plain route's (`F32_TOL`)
+        leaf = {k: (_rel(g_k[k], g_p[k]), _rel(g_k[k], v), _rel(g_p[k], v)) for k, v in g_t.items()}
+        excess = {k: e_k - F32_TOL["leaf"] * e_p for k, (_, e_k, e_p) in leaf.items()}
+        worst_kp = max(leaf, key=lambda k: leaf[k][0])
+        worst_ex = max(excess, key=excess.get)
+        fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})
+        show = lambda k: f"{k} {'/'.join(f'{v:.3e}' for v in leaf[k])}"
+        log(f"library {name}: train-mode loss {train_loss:.6f}, fwd + bwd {ms:.1f} ms, peak "
+            f"{peak:.3f} GiB, launches {launches[name]} | eval mode, kernels vs plain on the "
+            f"card, relative: outputs {fmt(rel)}; gradient in {dname} {fmt(grad)}; "
+            f"leaves (kernels vs plain / kernels vs f32 / plain vs f32) worst kernels vs plain "
+            f"{show(worst_kp)}, worst over {F32_TOL['leaf']}x the plain route's {show(worst_ex)} "
+            f"(excess {excess[worst_ex]:.3e}); "
+            f"{len(leaf)} leaves ({card})")
+        if not np.isfinite(train_loss):
+            raise AssertionError(f"library {name}: non-finite loss {train_loss}")
+        if not all(np.isfinite(v) and v <= REF_TOL for v in rel.values()):
+            raise AssertionError(f"library {name}: kernels vs plain relative errors {rel} "
+                                 f"above {REF_TOL}")
+        if not (np.isfinite(grad["kernels vs plain"])
+                and grad["kernels vs plain"] <= GRAD_TOL[dname]):
+            raise AssertionError(f"library {name}: gradient kernels vs plain "
+                                 f"{grad['kernels vs plain']} above {GRAD_TOL[dname]}")
+        if not grad["kernels vs f32"] <= F32_TOL["vector"] * grad["plain vs f32"]:
+            raise AssertionError(f"library {name}: the kernels' gradient is farther from the "
+                                 f"f32 one than the plain route's: {grad}")
+        if not excess[worst_ex] <= F32_TOL["floor"]:
+            raise AssertionError(f"library {name}: the kernels' gradient of {worst_ex} is "
+                                 f"farther from the f32 one than the plain route's: "
+                                 f"{show(worst_ex)}")
+        if not all(launches[name][k] > 0 for k in ("K1", "K2", "K3")):
+            raise AssertionError(f"library {name}: a kernel was not launched: {launches[name]}")
+        del model, truth, m, runs, out, loss, g_k, g_k2, g_p, g_t
+    launches["total"] = {k: sum(run[k] for run in launches.values()) for k in kernels}
+    return krows, launches
+
+
+# ---- data parallelism over a process group (dp_phase)
+
+DP_WORLD = 2
+DP_CASES = (("stage1", "kernels"), ("stage2", "kernels"), ("stage1", "plain_f32"),
+            ("stage2", "plain_f32"))
+DP_COUNTS = ("n_cand", "n_rel", "has_novel", "cand_overflow", "plan_overflow")
+# kernels route (`dp_phase`): relative, of the total loss, of each term, of
+# n_cand, of n_rel and the queue's counts, of the state
+DP_BF16_TOL = {"loss": 1e-3, "terms": 0.15, "n_cand": 1e-3, "counts": 5e-2, "state": 1e-2}
+
+
+def dp_config(stage: str, route: str):
+    """The `bench.py` Stage-1 (2 scans) or Stage-2 (2 + 2 scans) config;
+    bf16 on the kernels, f32 on the plain route."""
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.discover import DiscoverConfig
+    from gcdlss_tpu_torch.train.pretrain import PretrainConfig
+
+    dtype = "bfloat16" if route == "kernels" else "float32"
+    if stage == "stage1":
+        return PretrainConfig(num_labeled_classes=17, num_classes=19, unknown_label=17,
+                              voxel_caps=default_caps(CAP0), dtype=dtype)
+    caps = default_caps(S2_CAP0)
+    return DiscoverConfig(num_labeled_classes=17, num_unlabeled_classes=2, num_classes=19,
+                          unknown_label=17, voxel_caps=caps, sup_voxel_cap=CAP0,
+                          mix_voxel_caps=caps, num_sup_scans=BATCH, point_cap=POINTS_PER_SCAN,
+                          voxel_size=VOXEL_SIZE, dtype=dtype, cand_cap=4096, queue_slots=20,
+                          queue_per_slot=1024, kmeans_iters=15, steps_per_epoch=1000)
+
+
+def dp_run(device, stage: str, route: str, group=None, rank: int = 0, world: int = 1) -> dict:
+    """One step of `stage` from the state of seed 0 on the synthetic sides
+    (`tools.stage2_split.synthetic_sides`): the one-process step on all
+    scans (`group` None) or this rank's share of the group's (its scans,
+    `parallel.mesh.shard_voxel_batch`; the state broadcast from rank 0).
+    Returns the metrics, the state (on the CPU) and the step's device ms."""
+    import torch
+
+    from gcdlss_tpu_torch.parallel import mesh
+    from gcdlss_tpu_torch.tools.stage2_split import synthetic_sides
+    from gcdlss_tpu_torch.train.discover import create_discover_state, discover_train_step
+    from gcdlss_tpu_torch.train.pretrain import create_pretrain_state, pretrain_train_step
+
+    cfg = dp_config(stage, route)
+    sup, unsup = synthetic_sides(device)
+    if group is not None:
+        sup = mesh.shard_voxel_batch(sup, BATCH, rank, world)
+        unsup = mesh.shard_voxel_batch(unsup, BATCH, rank, world)
+    if stage == "stage1":
+        state = create_pretrain_state(0, cfg, device)
+        models = {"model": state.model}
+        if group is not None:
+            mesh.replicate(state.model, group=group)
+        step = lambda: pretrain_train_step(state, sup, cfg, group=group)[1]
+    else:
+        state = create_discover_state(0, cfg, device=device)
+        models = {"student": state.student, "teacher": state.teacher}
+        if group is not None:
+            mesh.replicate(state.student, state.teacher, state.tau, state.generator,
+                           state.queue, group=group)
+        step = lambda: discover_train_step(state, sup, unsup, cfg, group=group)[1]
+    with (plain_convs(round_operands=False) if route == "plain_f32"
+          else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step()
+        end.record()
+        torch.cuda.synchronize()
+    out = {"ms": start.elapsed_time(end),
+           "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+           "valid": [int(sup["valid"].sum())] + ([] if stage == "stage1"
+                                                   else [int(unsup["valid"].sum())])}
+    for who, m in models.items():
+        out[who] = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    if stage == "stage2":
+        out["queue"] = tuple(a.detach().cpu() for a in state.queue)
+    return out
+
+
+def dp_worker(rank: int, world: int, tmp: str) -> None:
+    """A rank of `dp_phase`'s two-process run: gloo over CUDA tensors, both
+    ranks on card 0, a `FileStore` in `tmp`. Runs every case of DP_CASES and
+    saves its results and its kernel launches to `tmp/rank{rank}.pt`."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_b", rank=rank,
+                            world_size=world)
+    try:
+        res, launches = {}, {k: 0 for k in kernels}
+        for stage, route in DP_CASES:
+            for fn in kernels.values():
+                fn.launches = 0
+            res[(stage, route)] = dp_run(device, stage, route, dist.group.WORLD, rank, world)
+            if route == "kernels":
+                for k, fn in kernels.items():
+                    launches[k] += fn.launches
+        torch.save({"results": res, "launches": launches}, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _state_diff(a: dict, b: dict) -> tuple:
+    """(largest |a - b| / max(max|b|, 1e-3) over the tensors, its name), and
+    whether a and b are the same bits."""
+    worst, where, same = 0.0, None, True
+    for who in ("model", "student", "teacher"):
+        for k, v in b.get(who, {}).items():
+            got = a[who][k]
+            same = same and torch_equal(got, v)
+            if v.is_floating_point():
+                d = float((got.float() - v.float()).abs().max()) / max(
+                    float(v.float().abs().max()), 1e-3)
+                if d > worst:
+                    worst, where = d, f"{who} {k}"
+    for x, y in zip(a.get("queue", ()), b.get("queue", ())):
+        same = same and torch_equal(x, y)
+    for k, v in b["metrics"].items():
+        same = same and torch_equal(a["metrics"][k], v)
+    return worst, where, same
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def dp_phase(device, card: str) -> dict:
+    """Data parallelism on the card. (a) One rank over NCCL in this process
+    (`init_process_group` with a `FileStore` in a temporary directory): the
+    Stage-1 and Stage-2 steps at the `bench.py` shapes (bf16, kernels) with
+    the group give the bits of the same steps without it: parameters,
+    statistics, metrics and queue. (b) Two processes on the one card over
+    gloo with CUDA tensors (`dp_worker`), each holding 1 + 1 scans, against
+    the one-process 2 + 2 step in this process: every rank ends with the
+    same bits; plan overflow 0 on both; on the plain f32 route (no bf16
+    operand rounding: the steps differ only in the order of f32 sums, as on
+    the CPU) the counts and queue counts equal and losses, tau, parameters,
+    statistics and queue within `tests/test_torch_dp.py`'s tolerances; on
+    the kernels (bf16) a change of summation order moves bf16-rounded
+    activations by ~1e-3 relative (`reference_phase`), which moves a few
+    candidates across the threshold: there the losses, `n_cand`, `n_rel`,
+    the queue's counts and the state are held within DP_BF16_TOL. Step ms of
+    every run. Returns the kernels' launches in (a)'s group runs and (b)'s
+    kernel route."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+
+    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+               "K4": cube_candidates_map}
+    launches = {k: 0 for k in kernels}
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        # (a) one rank over NCCL
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store_a", rank=0,
+                                world_size=1)
+        try:
+            for stage in ("stage1", "stage2"):
+                ref = dp_run(device, stage, "kernels")
+                again = dp_run(device, stage, "kernels")
+                for fn in kernels.values():
+                    fn.launches = 0
+                got = dp_run(device, stage, "kernels", dist.group.WORLD, 0, 1)
+                for k, fn in kernels.items():
+                    launches[k] += fn.launches
+                repeat = _state_diff(again, ref)[2]
+                worst, where, same = _state_diff(got, ref)
+                log(f"dp (a) {stage}: one NCCL rank vs no group: "
+                    f"{'the same bits' if same else f'differs, worst {worst:.3e} at {where}'}; "
+                    f"no group twice: {'the same bits' if repeat else 'differs'} | step "
+                    f"{got['ms']:.1f} ms with the group, {ref['ms']:.1f} ms without ({card})")
+                if not same:
+                    raise AssertionError(f"dp (a) {stage}: the one-rank group step is not the "
+                                         f"step without a group (worst {worst} at {where})")
+        finally:
+            dist.destroy_process_group()
+
+        # (b) two processes on the one card, gloo over CUDA tensors
+        single = {case: dp_run(device, *case) for case in DP_CASES}
+        torch.cuda.empty_cache()
+        mp.start_processes(dp_worker, args=(DP_WORLD, tmp), nprocs=DP_WORLD,
+                           start_method="spawn", join=True)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(DP_WORLD)]
+    for r in ranks:
+        for k in kernels:
+            launches[k] += r["launches"][k]
+    for case in DP_CASES:
+        stage, route = case
+        one, grp = single[case], [r["results"][case] for r in ranks]
+        worst, where, same = _state_diff(grp[1], grp[0])
+        if not same:
+            raise AssertionError(f"dp (b) {case}: the ranks end with different states "
+                                 f"(worst {worst} at {where})")
+        worst, where, _ = _state_diff(grp[0], one)
+        m1, mg = one["metrics"], grp[0]["metrics"]
+        counts = {k: (int(m1[k]), int(mg[k])) for k in DP_COUNTS if k in m1}
+        losses = {k: (float(m1[k]), float(mg[k])) for k, v in m1.items()
+                  if v.is_floating_point()}
+        loss_rel = {k: abs(b - a) / max(abs(a), 1e-12) for k, (a, b) in losses.items()}
+        queue = ""
+        if stage == "stage2":
+            qd = float((grp[0]["queue"][0] - one["queue"][0]).abs().max()) / max(
+                float(one["queue"][0].abs().max()), 1e-3)
+            qc = torch_equal(grp[0]["queue"][1], one["queue"][1]) and torch_equal(
+                grp[0]["queue"][2], one["queue"][2])
+            queue = f"; queue feats {qd:.3e}, counts and head {'equal' if qc else 'differ'}"
+        log(f"dp (b) {stage} {route}: 2 ranks x {grp[0]['valid']} / {grp[1]['valid']} voxels vs "
+            f"one process {one['valid']}: counts (one, group) {counts}; losses relative "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in loss_rel.items()})}; state worst "
+            f"{worst:.3e} at {where}{queue} | step {grp[0]['ms']:.1f} / {grp[1]['ms']:.1f} ms "
+            f"a rank, {one['ms']:.1f} ms one process ({card})")
+        if counts["plan_overflow"] != (0, 0):
+            raise AssertionError(f"dp (b) {case}: a plan dropped voxels {counts}")
+        if route == "plain_f32":
+            bad = [k for k, (a, b) in counts.items() if a != b]
+            bad += [k for k, (a, b) in losses.items()
+                    if not abs(b - a) <= 1e-5 * abs(a) + 1e-6]
+            if worst > 1e-4:
+                bad.append(f"state {where}")
+            if stage == "stage2" and not (qd <= 1e-4 and qc):
+                bad.append("queue")
+            if bad:
+                raise AssertionError(f"dp (b) {case}: the group step differs from the "
+                                     f"one-process step in {bad}")
+        else:
+            # bf16: bounds ~10x what the first run measured (total loss
+            # 1.2e-4, the terms up to 1.4e-2, n_cand 4e-5, n_rel 5.1e-3,
+            # state 7.2e-4 relative); a missing reduction moves them by tens
+            # of percent
+            bad = [k for k, (a, b) in losses.items() if not np.isfinite(b)]
+            bad += [k for k, v in loss_rel.items()
+                    if not v <= DP_BF16_TOL["loss" if k == "loss" else "terms"]]
+            near = lambda a, b, tol: abs(b - a) <= tol * abs(a)
+            if stage == "stage2":
+                if not near(*counts["n_cand"], DP_BF16_TOL["n_cand"]):
+                    bad.append("n_cand")
+                if not near(*counts["n_rel"], DP_BF16_TOL["counts"]):
+                    bad.append("n_rel")
+                if not (near(float(one["queue"][1].sum()), float(grp[0]["queue"][1].sum()),
+                             DP_BF16_TOL["counts"])
+                        and torch_equal(grp[0]["queue"][2], one["queue"][2])):
+                    bad.append("queue counts")
+            if not worst <= DP_BF16_TOL["state"]:
+                bad.append(f"state {where}")
+            if bad:
+                raise AssertionError(f"dp (b) {case}: the group step is off the one-process "
+                                     f"step in {bad}")
+    if not all(launches[k] > 0 for k in ("K1", "K2", "K3")):
+        raise AssertionError(f"dp: a kernel was not launched: {launches}")
+    return launches
+
+
+ALONE = {"library": library_phase, "dp": dp_phase}  # `--only NAME`
+
+
 def main() -> int:
     import torch
 
+    only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else []
+    if sys.argv[1:] and not (only and set(only) <= set(ALONE)):
+        print(f"usage: chip_smoke.py [--only {'|'.join(ALONE)} ...]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2444,6 +3008,10 @@ def main() -> int:
         return out
 
     phase("rates", rates_phase, device)
+    if only:
+        for name in only:
+            log(f"{name}: {phase(name, ALONE[name], device, card)}")
+        return 0
     rows = phase("kernels", kernel_phase, device) + phase("stage2 kernels", stage2_kernel_phase,
                                                           device)
     phase("adversarial", adversarial_phase, device)
@@ -2462,6 +3030,8 @@ def main() -> int:
     cyl_rows, launches_cyl = phase("cylinder", cylinder_phase, device, card)
     launches_cli = phase("cli", cli_phase, device, card)
     launches_dq = phase("discovery quality", discovery_phase, device, card)
+    lib_rows, launches_lib = phase("library", library_phase, device, card)
+    launches_dp = phase("dp", dp_phase, device, card)
     log(f"phases (wall s): {json.dumps({k: round(v, 1) for k, v in wall.items()})}; "
         f"remat peaks (GiB) {peaks_remat}")
     # `launches`: K1-K4 on the Stage-2 path (the training path that runs all
@@ -2470,10 +3040,12 @@ def main() -> int:
     # `launches_nops` the four single-model recipes together, `launches_cli`
     # the CLI's eighteen runs together, `launches_quality` the discovery-quality
     # run, `launches_cylinder` the Cylinder3D Stage-2 and trainer paths
-    # together), P1-P4 in
+    # together, `launches_library` the seven library models' steps together,
+    # `launches_dp` the data-parallel group runs: (a)'s and both ranks' of
+    # (b) on the kernels), P1-P4 in
     # the tool's main run (their only path; K1's launches there are
     # `launches_parts`)
-    rows += cyl_rows
+    rows += cyl_rows + lib_rows
     for r in rows:
         r["launches"] = launches_s2[r["name"][:2]]
         r["launches_stage1"] = launches_s1[r["name"][:2]]
@@ -2489,10 +3061,13 @@ def main() -> int:
     rows += part_rows
     for r in rows:
         r["launches_cli"] = launches_cli["total"][r["name"][:2]]
+        r["launches_library"] = launches_lib["total"].get(r["name"][:2], 0)
+        r["launches_dp"] = launches_dp.get(r["name"][:2], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("launches_stage1", "launches_stage15", "launches_variants", "launches_nops",
-             "launches_cli", "launches_quality", "launches_cylinder", "launches_parts",
+             "launches_cli", "launches_quality", "launches_cylinder", "launches_library",
+             "launches_dp", "launches_parts",
              "bound_measured_ms",
              "bound_dense_ms", "fill",
              "far_entries",

@@ -90,6 +90,23 @@ def frozen_batch_norm_stats():
         _FROZEN_STATS -= 1
 
 
+_STATS_GROUP = None  # a process group: batch statistics over every rank's rows
+
+
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Inside, a train-mode `SparseBatchNorm` takes its statistics over the
+    valid rows of every rank of `group` (`ops.conv.masked_batch_norm_stats`);
+    `None` leaves them the rank's own. Keep the backward pass inside too: a
+    `remat` recompute takes the statistics again."""
+    global _STATS_GROUP
+    prev, _STATS_GROUP = _STATS_GROUP, group
+    try:
+        yield
+    finally:
+        _STATS_GROUP = prev
+
+
 class SparseBatchNorm(nn.Module):
     """Batch norm over valid voxels (torch semantics: momentum 0.1, eps 1e-5).
 
@@ -108,7 +125,7 @@ class SparseBatchNorm(nn.Module):
 
     def forward(self, x, valid):
         if self.training:
-            mean, var, cnt = masked_batch_norm_stats(x.float(), valid)
+            mean, var, cnt = masked_batch_norm_stats(x.float(), valid, _STATS_GROUP)
             if not _FROZEN_STATS:
                 with torch.no_grad():
                     unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)

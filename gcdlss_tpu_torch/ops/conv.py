@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import all_reduce, all_reduce_sum
+
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[idx] in f32 with zero rows where idx < 0."""
@@ -118,10 +120,14 @@ def up_conv(x_coarse: torch.Tensor, parent: torch.Tensor, dcode: torch.Tensor,
     return torch.einsum("nc,nco->no", g, w.float()[dcode.long()])
 
 
-def masked_batch_norm_stats(x: torch.Tensor, valid: torch.Tensor):
-    """Mean / biased variance over valid rows. Returns (mean [C], var [C], count)."""
+def masked_batch_norm_stats(x: torch.Tensor, valid: torch.Tensor, group=None):
+    """Mean / biased variance over valid rows. Returns (mean [C], var [C], count).
+
+    With a process `group`, over the valid rows of every rank: the sums and
+    the count are all-reduced, the sums differentiably (`parallel.mesh`), so
+    a rank's rows get the other ranks' terms of the gradient."""
     m = valid[:, None].to(x.dtype)
-    cnt = valid.to(x.dtype).sum().clamp(min=1.0)
-    mean = (x * m).sum(0) / cnt
-    var = ((x - mean).square() * m).sum(0) / cnt
+    cnt = all_reduce(valid.to(x.dtype).sum(), group).clamp(min=1.0)
+    mean = all_reduce_sum((x * m).sum(0), group) / cnt
+    var = all_reduce_sum(((x - mean).square() * m).sum(0), group) / cnt
     return mean, var, cnt

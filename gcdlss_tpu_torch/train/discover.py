@@ -35,6 +35,7 @@ neighbor maps of the UNet plans go through K3 (`plan_kernel=2`) or K4
 from __future__ import annotations
 
 import copy
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -49,10 +50,13 @@ from ..losses import (adaptive_threshold_loss, calibration_loss, cross_entropy, 
                       soft_cross_entropy)
 from ..losses_lion import energy_loss, gambler_loss
 from ..models.cylinder3d import Cylinder3DRC
+from ..models.layers import batch_norm_group
 from ..models.minkunet import (DEFAULT_PLANES, MinkUNetRC, assemble_dummy_logits,
                                assemble_dummy_logits_from_heads, assemble_novel_logits)
 from ..ops.plan import PLAN_KERNELS, build_unet_plan, plan_capacity_overflow
 from ..ops.voxelize import sparse_quantize
+from ..parallel.mesh import (all_gather_padded, all_reduce, all_reduce_grads, rank_cap,
+                             rank_caps, rank_of, world_size)
 from .common import make_sgd, plan_and_gather, resolve_device
 from .feature_mixing import draw_perms, mix_features
 from .lasermix import NUM_AREAS_CHOICES, lasermix_batch, lasermix_voxel_groups
@@ -148,6 +152,40 @@ def check_config(cfg: DiscoverConfig) -> None:
         if getattr(cfg, field) not in choices:
             raise ValueError(f"DiscoverConfig.{field} must be one of {choices}, "
                              f"got {getattr(cfg, field)!r}")
+
+
+# field -> the values the step runs over a process group: the default
+# recipe's; the others reduce over rows in ways not yet written out
+# (feature-mix pairs span ranks, the point-mode plan re-quantizes points,
+# Sinkhorn and LiON keep their own means)
+_DP_CHOICES = {
+    "mix_mode": ("lasermix", "none"),
+    "mix_plan_mode": ("voxel",),
+    "assigner": ("kmeans_hungarian",),
+    "use_lion": (False,),
+}
+
+
+def rank_config(cfg: DiscoverConfig, group) -> DiscoverConfig:
+    """`cfg` as one rank of `group` sees it: its share of the plan and sup
+    capacities (`parallel.mesh.rank_cap`) and of the scans on each side.
+    `None` returns `cfg`. Raises for a variant the data-parallel step does
+    not run (`_DP_CHOICES`) or scans that do not split over the ranks."""
+    if group is None:
+        return cfg
+    for field, choices in _DP_CHOICES.items():
+        if getattr(cfg, field) not in choices:
+            raise ValueError(f"over a process group DiscoverConfig.{field} must be one of "
+                             f"{choices}, got {getattr(cfg, field)!r}")
+    if cfg.arch == "Cylinder3D":
+        raise ValueError("over a process group the step runs MinkUNet students only")
+    w = world_size(group)
+    if cfg.num_sup_scans % w:
+        raise ValueError(f"{cfg.num_sup_scans} scans a side do not split over {w} ranks")
+    return dataclasses.replace(
+        cfg, voxel_caps=rank_caps(cfg.voxel_caps, group),
+        mix_voxel_caps=rank_caps(cfg.mix_voxel_caps, group),
+        sup_voxel_cap=rank_cap(cfg.sup_voxel_cap, w), num_sup_scans=cfg.num_sup_scans // w)
 
 
 @dataclass
@@ -358,15 +396,88 @@ def _assign_kmeans_hungarian(cfg, heads, cand_feats, cand_valid, n_cand, qfeats,
     return rel_mask, n_rel, has_novel, row_of_col[rel_labels] + K
 
 
+def global_rows(lvl0, lcfg: DiscoverConfig, group) -> torch.Tensor:
+    """Each level-0 row's index in the one-process combined plan of every
+    rank's scans (int64 [cap0]). That plan's rows are the valid voxels in
+    (scan, x, y, z) order, sup scans 0..S-1 then unsup scans S..2S-1, and
+    rank r holds sup scans and unsup scans [r S/W, (r + 1) S/W) as its local
+    scans 0..S/W-1 and S/W..2S/W-1: a row's index is the voxel count of the
+    scans before its own in that global order (all ranks' per-scan counts,
+    gathered) plus its rank within its scan. Rows past the valid ones keep
+    their local index (no candidate is there); without a group every row
+    does."""
+    s_l = lcfg.num_sup_scans
+    s_g = s_l * world_size(group)
+    dev = lvl0.valid.device
+    b = lvl0.coords[:, 0].long()
+    local_counts = torch.zeros(2 * s_l, dtype=torch.int64, device=dev).index_add_(
+        0, torch.where(lvl0.valid, b, 0), lvl0.valid.long())
+    scan_l = torch.arange(2 * s_l, device=dev)
+    scan_g = torch.where(scan_l < s_l, rank_of(group) * s_l + scan_l,
+                         s_g + rank_of(group) * s_l + scan_l - s_l)
+    counts = all_reduce(torch.zeros(2 * s_g, dtype=torch.int64, device=dev).index_copy_(
+        0, scan_g, local_counts), group)
+    start_g = torch.cumsum(counts, 0) - counts
+    start_l = torch.cumsum(local_counts, 0) - local_counts
+    rows = torch.arange(lvl0.valid.shape[0], dtype=torch.int64, device=dev)
+    bs = torch.where(lvl0.valid, b, 0)
+    return torch.where(lvl0.valid, start_g[scan_g[bs]] + rows - start_l[bs], rows)
+
+
+def _gather_candidates(key, cand_mask, feats_t, cand_cap: int, group):
+    """The global first `cand_cap` candidates by key over every rank: each
+    rank's own first `cand_cap` (no rank holds more of the global ones),
+    gathered, ordered by key. Returns (features [cand_cap, C], owner rank
+    and local row of each, -1 past the candidates)."""
+    n = key.shape[0]
+    take = min(cand_cap, n)
+    lrows = torch.argsort(key, stable=True)[:take]
+    big = torch.iinfo(torch.int64).max
+    lkey = torch.full((cand_cap,), big, dtype=torch.int64, device=key.device)
+    lkey[:take] = torch.where(cand_mask[lrows], key[lrows], big)
+    lrow = torch.full((cand_cap,), -1, dtype=torch.int64, device=key.device)
+    lrow[:take] = lrows
+    lfeat = torch.zeros((cand_cap, feats_t.shape[1]), dtype=feats_t.dtype, device=key.device)
+    lfeat[:take] = feats_t[lrows]
+    gkey = all_gather_padded(lkey, group).reshape(-1)
+    gfeat = all_gather_padded(lfeat, group).reshape(-1, feats_t.shape[1])
+    grow = all_gather_padded(lrow, group).reshape(-1)
+    order = torch.argsort(gkey, stable=True)[:cand_cap]
+    found = gkey[order] != big
+    owner = torch.where(found, order // cand_cap, -1)
+    return gfeat[order], owner, torch.where(found, grow[order], -1)
+
+
 def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
                         cfg: DiscoverConfig, draws: dict | None = None,
-                        sup_pb: dict | None = None, unsup_pb: dict | None = None):
+                        sup_pb: dict | None = None, unsup_pb: dict | None = None,
+                        group=None):
     """One Stage-2 step in place on `state`; returns (state, metrics), the
     metrics as tensors on the device.
 
     `draws` replaces the step's random draws (`draw_step_randoms`), e.g. with
     the JAX package's. The point batches `sup_pb` / `unsup_pb` are read only
-    by the point-mode mixed plan, which raises without them."""
+    by the point-mode mixed plan, which raises without them.
+
+    With a process `group` (`parallel.mesh`), `sup_vb` / `unsup_vb` are this
+    rank's whole scans (`shard_voxel_batch`, the same scan block on both
+    sides, so every LaserMix pair stays on its rank) and the step is the
+    one-process step on every rank's scans under `cfg`, whose capacities and
+    scan counts stay global (`rank_config` derives the rank's): batch norm
+    over all rows, each loss the rank's share of the global mean, gradients
+    summed over the ranks, the candidates mined by their row in the global
+    plan (`global_rows`, `_gather_candidates`), and the assignment and the
+    queue push run on the gathered set on every rank. Every rank must hold
+    the same state and draws (`parallel.mesh.replicate`)."""
+    lcfg = rank_config(cfg, group)
+    if group is not None and sup_vb["coords"].shape[0] != lcfg.sup_voxel_cap:
+        raise ValueError(f"a rank's sup batch must have {lcfg.sup_voxel_cap} rows "
+                         "(shard_voxel_batch)")
+    with batch_norm_group(group):
+        return _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group)
+
+
+def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group):
     check_config(cfg)
     if draws is None:
         draws = draw_step_randoms(state, cfg)
@@ -377,15 +488,15 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
 
     # ---- combined sup + unsup plan ----
     with torch.profiler.record_function("discover/plan"):
-        plan, feats0, _, mapped0 = plan_and_gather(_combine_batches(sup_vb, unsup_vb, cfg),
-                                                   cfg.voxel_caps, cfg.plan_kernel)
+        plan, feats0, _, mapped0 = plan_and_gather(_combine_batches(sup_vb, unsup_vb, lcfg),
+                                                   lcfg.voxel_caps, cfg.plan_kernel)
     n_in = sup_vb["coords"].shape[0] + unsup_vb["coords"].shape[0]
     ok = plan.rep < n_in
     valid0 = plan.levels[0].valid
-    is_sup = ok & (plan.rep < cfg.sup_voxel_cap)
+    is_sup = ok & (plan.rep < lcfg.sup_voxel_cap)
     sup_mask = is_sup & valid0
     unsup_mask = valid0 & ~is_sup
-    cap0 = cfg.voxel_caps[0]
+    cap0 = lcfg.voxel_caps[0]
 
     # ---- teacher forward: train-mode BN, its statistics become the teacher's ----
     with torch.no_grad(), torch.profiler.record_function("discover/teacher"):
@@ -400,23 +511,26 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
     if cfg.mix_mode == "lasermix":
         with torch.no_grad(), torch.profiler.record_function("discover/mix_plan"):
             mix_plan, mix_feats0, mix_labels0 = mixed_plan(
-                cfg, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
+                lcfg, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
                 draws["num_areas"], sup_pb, unsup_pb)
 
     # ---- NCC candidate mining and the novel assignment (teacher side, no grad) ----
     with torch.no_grad(), torch.profiler.record_function("discover/mining"):
         cand_mask = candidate_mask(cfg, dummy_t, probs_t, state.tau, unsup_mask)
-        n_cand = cand_mask.sum().to(torch.int32)
+        n_cand = all_reduce(cand_mask.sum().to(torch.int32), group)
         cand_cap = _cand_cap(cfg)
         # a capped subset in hashed row order: plan order is coordinate
         # order, so a prefix would keep one spatial corner of the scans; the
         # low 27 bits of the int32-wrapped product are those of the int64 one
-        rows0 = torch.arange(cap0, dtype=torch.int64, device=valid0.device)
-        h = (rows0 * -1640531527) & 0x07FFFFFF
+        h = (global_rows(plan.levels[0], lcfg, group) * -1640531527) & 0x07FFFFFF
         key = torch.where(cand_mask, h, h + (1 << 27))
-        cand_rows = torch.argsort(key, stable=True)[:cand_cap]
         cand_valid = torch.arange(cand_cap, device=valid0.device) < n_cand.clamp(max=cand_cap)
-        cand_feats = feats_t[cand_rows] * cand_valid[:, None]
+        # the student's terms of a candidate are taken on the rank that holds
+        # its row (`own`); the assignment and the queue see all of them
+        gfeats, owner, lrow = _gather_candidates(key, cand_mask, feats_t, cand_cap, group)
+        cand_feats = gfeats * cand_valid[:, None]
+        own = cand_valid & (owner == rank_of(group))
+        cand_rows = torch.where(own, lrow, 0)
         qfeats, qvalid = queue_flatten(state.queue)
         heads = student.encoder
         if cfg.assigner == "sinkhorn":
@@ -437,14 +551,14 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         dummy_s = assemble_dummy_logits(out_s)
         feats_s = out_s["feats"]
         sup_targets = torch.where(sup_mask, mapped0, -1)
-        l_sup = cross_entropy(dummy_s, sup_targets, valid0)
+        l_sup = cross_entropy(dummy_s, sup_targets, valid0, group=group)
         l_mse = cfg.mse_coeff * mse_prob_loss(torch.softmax(dummy_s, dim=-1), probs_t,
-                                              unsup_mask)
+                                              unsup_mask, group=group)
     with torch.profiler.record_function("discover/student_mix_fwd"):
         if cfg.mix_mode == "lasermix":
             dummy_mix = assemble_dummy_logits(student(mix_plan, mix_feats0))
             l_lm = cfg.lasermix_coeff * cross_entropy(dummy_mix, mix_labels0,
-                                                      mix_plan.levels[0].valid)
+                                                      mix_plan.levels[0].valid, group=group)
         elif cfg.mix_mode == "feature":
             # PolarMix-MT: labeled feature pairs mixed with soft targets,
             # through the raw `final` / `final2` heads
@@ -468,10 +582,10 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
             l_cal = cfg.lion_coeff * (l_gam + l_en)
         else:
             l_cal = cfg.calib_coeff * calibration_loss(dummy_s, sup_targets, cfg.unknown_label,
-                                                       valid0)
+                                                       valid0, group=group)
         if cfg.threshold_mode in ("adaptive_logit", "hybrid"):
             l_thr = cfg.threshold_loss_weight * adaptive_threshold_loss(
-                dummy_s[:, -1], sup_targets, cfg.unknown_label, state.tau, valid0)
+                dummy_s[:, -1], sup_targets, cfg.unknown_label, state.tau, valid0, group=group)
         else:
             # tau stays in the graph with a zero gradient, so SGD still
             # decays it, as optax's chain does in the JAX package
@@ -481,23 +595,26 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         f2, f3 = heads.final2, heads.final3
         stud_known_cand = dummy_s[cand_rows][:, :-1]
         cat_nov = torch.cat([stud_known_cand, cand_feats @ f3.kernel + f3.bias], dim=-1)
+        own_rel = rel_mask & own
         l_nov_unsup = cfg.novel_coeff * cross_entropy(
-            cat_nov, torch.where(rel_mask, mapped_novel, -1))
+            cat_nov, torch.where(own_rel, mapped_novel, -1), group=group)
         cat_sup = torch.cat([dummy_s[:, :-1], feats_s @ f3.kernel + f3.bias], dim=-1)
-        l_nov_sup = cfg.sup_novel_coeff * cross_entropy(cat_sup, sup_targets, valid0)
+        l_nov_sup = cfg.sup_novel_coeff * cross_entropy(cat_sup, sup_targets, valid0,
+                                                        group=group)
         ncc_rel = (cand_feats @ f2.kernel + f2.bias).max(dim=-1, keepdim=True).values
         l_ncc = cfg.ncc_coeff * cross_entropy(
             torch.cat([stud_known_cand, ncc_rel], dim=-1),
-            torch.where(rel_mask, cfg.unknown_label, -1))
+            torch.where(own_rel, cfg.unknown_label, -1), group=group)
         loss = l_sup + l_mse + l_lm + l_cal + l_thr + g * (l_nov_unsup + l_nov_sup + l_ncc)
 
     with torch.profiler.record_function("discover/backward"):
         lr = make_lr_schedule(cfg)(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
     with torch.no_grad(), torch.profiler.record_function("discover/update"):
+        all_reduce_grads([*student.parameters(), state.tau], group)
         state.optimizer.step()
         # EMA teacher over the parameters only: t <- (1 - m) t + m s
         m = cfg.ema_momentum
@@ -516,11 +633,14 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         "thr_loss": l_thr, "novel_unsup": g * l_nov_unsup, "novel_sup": g * l_nov_sup,
         "ncc_unsup": g * l_ncc,
     }
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    # the ranks' shares -> the global values
+    total = all_reduce(torch.stack([v.detach() for v in metrics.values()]), group)
+    metrics = dict(zip(metrics, total.unbind()))
     # unique voxels dropped by the capacities of the main and mixed plans
     plan_ovf = plan_capacity_overflow(plan)
     if mix_plan is not None:
         plan_ovf = plan_ovf + plan_capacity_overflow(mix_plan)
+    plan_ovf = all_reduce(plan_ovf, group)
     metrics.update({
         "tau": state.tau.detach().clone(),
         "n_cand": n_cand,

@@ -21,8 +21,10 @@ import torch
 
 from ..eval.metrics import confusion_update, strict_hungarian_iou
 from ..losses import cross_entropy
+from ..models.layers import batch_norm_group
 from ..models.minkunet import DEFAULT_PLANES, MinkUNetSeg
 from ..ops.plan import plan_capacity_overflow
+from ..parallel.mesh import all_reduce, all_reduce_grads, rank_caps
 from .common import (StepClock, TrainState, inv_label_lut, make_sgd, plan_and_gather,
                      point_batch_to_device, resolve_device, voxel_batch_to_device)
 from .schedule import make_lr_schedule
@@ -64,23 +66,32 @@ def create_pretrain_state(seed: int, cfg: PretrainConfig, device="cuda") -> Trai
     return TrainState(model=model, optimizer=make_sgd(cfg, model.parameters()))
 
 
-def pretrain_train_step(state: TrainState, batch: dict, cfg: PretrainConfig):
-    """One SGD step in place on `state`; returns (state, metrics)."""
+def pretrain_train_step(state: TrainState, batch: dict, cfg: PretrainConfig, group=None):
+    """One SGD step in place on `state`; returns (state, metrics).
+
+    With a process `group` (`parallel.mesh`), `batch` is this rank's whole
+    scans (`shard_voxel_batch`) and the step is the one-process step on
+    every rank's scans: plans at the rank's share of the capacities,
+    batch-norm statistics and the CE mean over all ranks' rows, gradients
+    summed over the ranks, the metrics global (the plan overflow summed)."""
     model = state.model
     model.train()
-    plan, feats0, _, mapped0 = plan_and_gather(batch, cfg.voxel_caps)
+    plan, feats0, _, mapped0 = plan_and_gather(batch, rank_caps(cfg.voxel_caps, group))
     # the unknown slot has no logit in Stage 1 -> ignore those targets
     targets = torch.where(mapped0 == cfg.unknown_label, -1, mapped0)
-    out = model(plan, feats0)
-    loss = cross_entropy(out["logits"], targets, plan.levels[0].valid)
     lr = make_lr_schedule(cfg)(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    for pg in state.optimizer.param_groups:
+        pg["lr"] = lr
+    with batch_norm_group(group):
+        out = model(plan, feats0)
+        loss = cross_entropy(out["logits"], targets, plan.levels[0].valid, group=group)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    all_reduce_grads(model.parameters(), group)
     state.optimizer.step()
     state.step += 1
-    return state, {"loss": loss.detach(), "plan_overflow": plan_capacity_overflow(plan)}
+    return state, {"loss": all_reduce(loss.detach(), group),
+                   "plan_overflow": all_reduce(plan_capacity_overflow(plan), group)}
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
-"""Carry weights into a port `MinkUNetSeg`, `MinkUNetRC`, `Cylinder3DRC` or
-`MultiHeadCylinder3D`, and a JAX Stage-2 state into a port `DiscoverState`.
+"""Carry weights into a port `MinkUNetSeg`, `MinkUNetRC`, `Cylinder3DRC`,
+`MultiHeadCylinder3D` or library model (heads, wrappers, ORCA, mmdet3d
+MinkUNet), and a JAX Stage-2 state into a port `DiscoverState`.
 
 Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
 
@@ -13,7 +14,9 @@ Counterpart of `gcdlss_tpu/utils/import_torch.py`, in pure numpy -> torch:
     `final2`, `final3` -> `encoder.final*`, linear (`kernel`, `bias`) or
     cosine (`weight`)). `state_dict_to_jax` is the way back. A Cylinder3D
     tree keeps its names (`cylinder_jax_to_state_dict`, and back
-    `cylinder_state_dict_to_jax`).
+    `cylinder_state_dict_to_jax`), and so does a library model's but for
+    its MinkUNet backbones and the mmdet3d blocks
+    (`library_jax_to_state_dict`, and back `library_state_dict_to_jax`).
   * `load_jax_discover_state`: a whole JAX `DiscoverState` (student and
     teacher trees, tau, queue, step) -> a port `DiscoverState`.
   * `warm_start`: the Stage-1 -> Stage-1.5 / Stage-2 warm start from a port
@@ -34,6 +37,8 @@ from ..models.layers import Linear, NormedLinear, SparseBatchNorm
 
 _BN = (("weight", "scale", "params"), ("bias", "bias", "params"),
        ("running_mean", "mean", "batch_stats"), ("running_var", "var", "batch_stats"))
+_PROJ = {"downsample.0": "proj", "downsample.1": "proj_norm"}
+_PROJ_OF = {v: k for k, v in _PROJ.items()}
 
 
 def offset_permutation(ksize: int, me_order: str = "first_fastest") -> np.ndarray:
@@ -93,31 +98,38 @@ def _conv_in(sd, key, shape, me_order):
 def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
     """Port state-dict keys -> numpy arrays from JAX `params`/`batch_stats`."""
     out = {}
+    _backbone_to_sd("encoder", params["encoder"], batch_stats.get("encoder", {}), out)
+    for head in ("final", "final2", "final3"):
+        if head in params:
+            _module_to_sd(f"encoder.{head}", params[head], None, out)
+    return out
 
-    def module(path: str, p: dict, s: dict | None):
-        if "scale" in p:  # batch norm
-            for ours, theirs, tree in _BN:
-                out[f"{path}.{ours}"] = (p if tree == "params" else s)[theirs]
-            return
-        for name, arr in p.items():
-            out[f"{path}.{name}"] = arr
 
-    enc_p, enc_s = params["encoder"], batch_stats.get("encoder", {})
+def _module_to_sd(path: str, p: dict, s: dict | None, out: dict) -> None:
+    """One leaf module's arrays under `path`: a batch norm's four fields, or
+    its parameters as they are named."""
+    if "scale" in p:  # batch norm; a gradient tree has no statistics
+        for ours, theirs, tree in _BN:
+            src = p if tree == "params" else (s or {})
+            if theirs in src:
+                out[f"{path}.{ours}"] = src[theirs]
+        return
+    for name, arr in p.items():
+        out[f"{path}.{name}"] = arr
+
+
+def _backbone_to_sd(prefix: str, enc_p: dict, enc_s: dict, out: dict) -> None:
+    """A JAX `MinkUNetBackbone` tree -> the port's names under `prefix`."""
     for name, mod in enc_p.items():
-        path = "encoder." + _ref_name(name)
+        path = f"{prefix}." + _ref_name(name)
         if not name.startswith("block"):
-            module(path, mod, enc_s.get(name))
+            _module_to_sd(path, mod, enc_s.get(name), out)
             continue
         for bname, blk in mod.items():
             bpath = f"{path}.{bname.replace('block', '')}"
             bs = enc_s.get(name, {}).get(bname, {})
             for sub, sp in blk.items():
-                ours = {"proj": "downsample.0", "proj_norm": "downsample.1"}.get(sub, sub)
-                module(f"{bpath}.{ours}", sp, bs.get(sub))
-    for head in ("final", "final2", "final3"):
-        if head in params:
-            module(f"encoder.{head}", params[head], None)
-    return out
+                _module_to_sd(f"{bpath}.{_PROJ_OF.get(sub, sub)}", sp, bs.get(sub), out)
 
 
 def _jax_name(name: str) -> str:
@@ -127,7 +139,6 @@ def _jax_name(name: str) -> str:
     return name
 
 
-_PROJ = {"downsample.0": "proj", "downsample.1": "proj_norm"}
 
 
 def state_dict_to_jax(sd: dict) -> tuple:
@@ -167,9 +178,22 @@ def state_dict_to_jax(sd: dict) -> tuple:
     return params, stats
 
 
-def _is_cylinder_tree(params: dict) -> bool:
-    """A JAX `Cylinder3DRC` (`vfe`) or `MultiHeadCylinder3D` (`backbone`) tree."""
-    return "vfe" in params or "backbone" in params
+def _is_unet_backbone(tree) -> bool:
+    """A JAX `MinkUNetBackbone` (`conv0p1s1`) or `MinkUNetBackboneMM`
+    (`conv_input0`) tree."""
+    return isinstance(tree, dict) and ("conv0p1s1" in tree or "conv_input0" in tree)
+
+
+def _tree_kind(params: dict) -> str:
+    """"minkunet" (`MinkUNetSeg` / `MinkUNetRC` / `MinkUNetSegCosine`),
+    "cylinder" (`Cylinder3DRC`'s `vfe`, `MultiHeadCylinder3D`'s `backbone`)
+    or "library" (the heads, wrappers, ORCA and mmdet3d models)."""
+    if set(params) <= {"encoder", "final", "final2", "final3"} and "conv0p1s1" in params.get(
+            "encoder", {}):
+        return "minkunet"
+    if "vfe" in params or ("backbone" in params and not _is_unet_backbone(params["backbone"])):
+        return "cylinder"
+    return "library"
 
 
 def cylinder_jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
@@ -227,12 +251,122 @@ def cylinder_state_dict_to_jax(sd: dict) -> tuple:
     return params, stats
 
 
+def _port_parts(parts: list) -> list:
+    """A JAX path below a model's top -> the port's: `*_blocks/block{j}` ->
+    `*_blocks.{j}`, a block's `proj` / `proj_norm` -> `downsample.0` / `.1`."""
+    out = []
+    for i, p in enumerate(parts):
+        if i and parts[i - 1].endswith("_blocks") and p.startswith("block"):
+            out.append(p[len("block"):])
+        else:
+            out.extend(_PROJ_OF.get(p, p).split("."))
+    return out
+
+
+def _jax_parts(parts: list) -> list:
+    """The inverse of `_port_parts`."""
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        if i and parts[i - 1].endswith("_blocks") and p.isdigit():
+            out.append(f"block{p}")
+        elif p == "downsample":
+            i += 1
+            out.append(_PROJ[f"downsample.{parts[i]}"])
+        else:
+            out.append(p)
+        i += 1
+    return out
+
+
+def library_jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
+    """Port state-dict keys -> numpy arrays from the JAX tree of a library
+    model (`models.heads`, `models.wrappers`, `models.orca`,
+    `models.backbone_mm`). The port's modules carry the flax names
+    (`head_lab.prototypes.kernel`, `head_unlab.head{h}...`, a cosine head's
+    `weight`, `metric_learner.fc{i}`, `embedding`, `backbone.enc{i}_down`,
+    ...), with two renames: a `MinkUNetBackbone` (`encoder`, `encoder_a`,
+    `encoder_b`, `backbone`) takes the reference's module names as in
+    `jax_to_state_dict`, and a block of the mmdet3d backbone is
+    `dec{i}_blocks.{j}` with its projection under `downsample`."""
+    out = {}
+
+    def walk(parts: list, p: dict, s: dict) -> None:
+        if "scale" in p or not any(isinstance(v, dict) for v in p.values()):
+            _module_to_sd(".".join(_port_parts(parts)), p, s, out)
+            return
+        for name, v in p.items():
+            walk(parts + [name], v, s.get(name, {}))
+
+    for top, sub in params.items():
+        if "conv0p1s1" in sub:
+            _backbone_to_sd(top, sub, batch_stats.get(top, {}), out)
+        else:
+            walk([top], sub, batch_stats.get(top, {}))
+    return out
+
+
+def library_state_dict_to_jax(sd: dict) -> tuple:
+    """A port library model's state dict -> the JAX package's (`params`,
+    `batch_stats`) trees of numpy arrays, the inverse of
+    `library_jax_to_state_dict`."""
+    params: dict = {}
+    stats: dict = {}
+    backbones = {k.split(".")[0] for k in sd if k.split(".")[1:2] == ["conv0p1s1"]}
+    groups: dict = {}
+    for key, v in sd.items():
+        top, rest = key.split(".", 1)
+        if top in backbones:
+            groups.setdefault(top, {})[f"encoder.{rest}"] = v
+            continue
+        path, field = key.rsplit(".", 1)
+        groups.setdefault(path, {})[field] = np.asarray(
+            v.detach().cpu() if hasattr(v, "detach") else v)
+    for path, fields in groups.items():
+        if path in backbones:
+            p, s = state_dict_to_jax(fields)
+            params[path], stats[path] = p["encoder"], s.get("encoder", {})
+            continue
+        parts = _jax_parts(path.split("."))
+        if "running_mean" in fields:
+            trees = [(params if tree == "params" else stats, theirs, fields[ours])
+                     for ours, theirs, tree in _BN]
+        else:
+            trees = [(params, name, v) for name, v in fields.items()]
+        for tree, name, v in trees:
+            for k in parts:
+                tree = tree.setdefault(k, {})
+            tree[name] = v
+    return params, stats
+
+
+def jax_tree_to_state_dict(params: dict, batch_stats: dict) -> dict:
+    """Any JAX model's trees -> port state-dict keys and numpy arrays: a
+    MinkUNet's (`jax_to_state_dict`), a Cylinder3D model's or a library
+    model's, told apart by their top-level names (`_tree_kind`)."""
+    return {"minkunet": jax_to_state_dict, "cylinder": cylinder_jax_to_state_dict,
+            "library": library_jax_to_state_dict}[_tree_kind(params)](params, batch_stats)
+
+
+def state_dict_to_jax_tree(sd: dict) -> tuple:
+    """The inverse of `jax_tree_to_state_dict`, told apart by the keys: a
+    MinkUNet's state dict holds only `encoder.*`, the reference's stem
+    `encoder.conv0p1s1` among them; a Cylinder3D model's a `vfe` or a
+    backbone without a UNet stem."""
+    tops = {k.split(".")[0] for k in sd}
+    if tops == {"encoder"} and "encoder.conv0p1s1.kernel" in sd:
+        return state_dict_to_jax(sd)
+    if "vfe" in tops or ("backbone" in tops and not any(
+            k.startswith(("backbone.conv0p1s1.", "backbone.conv_input0.")) for k in sd)):
+        return cylinder_state_dict_to_jax(sd)
+    return library_state_dict_to_jax(sd)
+
+
 def load_jax_params(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
     """Load the JAX package's trees into `model` (every tensor must match):
-    a MinkUNet's or a Cylinder3D model's."""
-    to_sd = cylinder_jax_to_state_dict if _is_cylinder_tree(params) else jax_to_state_dict
+    a MinkUNet's, a Cylinder3D model's or a library model's."""
     sd = {k: torch.as_tensor(np.array(v, np.float32))
-          for k, v in to_sd(params, batch_stats).items()}
+          for k, v in jax_tree_to_state_dict(params, batch_stats).items()}
     model.load_state_dict(sd, strict=True)
 
 

@@ -54,19 +54,29 @@ def _close(got, ref):
 
 
 def _for_each(cases, check) -> None:
-    """`check(*case)` for every case, the failing case named. (The card-only
-    case lists run as loops inside one test each: parametrized, they would
-    add ~70 items that skip on the CPU, and the CPU suite's collected count
-    decides which tests share a worker there; ROADMAP, "Test budget".)"""
+    """`check(*case)` for every case; raises once all have run, naming every
+    case that failed. (The card-only case lists run as loops inside one test
+    per kernel family: parametrized, they would add ~90 items that skip on the
+    CPU, and the CPU suite's collected count decides which tests share a
+    worker there; ROADMAP, "Test budget".)"""
+    failed = []
     for case in cases:
         try:
             check(*case)
-        except AssertionError as exc:
-            raise AssertionError(f"case {case}: {exc}") from exc
+        except Exception as exc:  # noqa: BLE001 - every case runs; all are reported
+            failed.append(f"case {case}: {type(exc).__name__}: {exc}")
+    if failed:
+        raise AssertionError(f"{len(failed)} of {len(cases)} cases failed:\n" + "\n".join(failed))
+
+
+def _run_family(plan, checks) -> None:
+    """Every check of a kernel family on the plan, each with all its cases;
+    raises once all have run, naming every check that failed."""
+    _for_each([(plan, check) for check in checks], lambda p, check: check(p))
 
 
 
-def test_gather_gemm_matches_plain(plan):
+def _gather_gemm_matches_plain(plan):
     """K1 and K2 on the plan's books: the stem, a k3 level, a down and an up
     pool, and on a cylinder plan of the plan's voxels (Cylinder3D): a K = 9
     and a K = 3 column subset of a level map (adjoint: the reversed book)
@@ -127,7 +137,7 @@ RAGGED_GEMM_CASES = [  # (ci, co, k, n_out, n_in, off)
     (96, 96, 125, 4096, 4096, 0)]
 
 
-def test_gather_gemm_ragged_shapes_and_misaligned_x(plan):
+def _gather_gemm_ragged_shapes_and_misaligned_x(plan):
     """Widths that are no multiple of 8, row counts that are no multiple of
     any tile, N_in != N_out, books without locality with empty strips and
     empty offsets, and an x that starts 2 bytes off a 16-byte boundary: served,
@@ -170,7 +180,7 @@ def _check_gather_gemm_ragged(plan, ci, co, k, n_out, n_in, off) -> None:
     assert torch.equal(rw, dw)
 
 
-def test_gather_gemm_all_absent_and_full_books(plan):
+def _gather_gemm_all_absent_and_full_books(plan):
     _for_each([(plan, "absent"), (plan, "full")], _check_gather_gemm_absent_full)
 
 
@@ -195,7 +205,7 @@ def _check_gather_gemm_absent_full(plan, kind: str) -> None:
         assert not out.any() and not dx.any() and not dw.any()
 
 
-def test_wrappers_reject_wrong_inputs(plan):
+def _wrappers_reject_wrong_inputs(plan):
     nbr = plan.levels[1].nbr3
     x = torch.zeros(nbr.shape[0], 8, device=nbr.device, dtype=torch.bfloat16)
     w = torch.zeros(27, 8, 4, device=nbr.device, dtype=torch.bfloat16)
@@ -212,7 +222,7 @@ def test_wrappers_reject_wrong_inputs(plan):
 PLAN_MAPS = [(0, 5), (0, 3), (1, 3), (3, 3)]  # (level, k1)
 
 
-def test_cube_map_matches_join(plan):
+def _cube_map_matches_join(plan):
     _for_each([(plan, lvl, k1) for lvl, k1 in PLAN_MAPS], _check_cube_map_plan_level)
 
 
@@ -221,7 +231,7 @@ def _check_cube_map_plan_level(plan, lvl: int, k1: int) -> None:
     assert torch.equal(cube_neighbor_map(kh, kl, k1), join_neighbor_map(kh, kl, k1))
 
 
-def test_cube_map_matches_join_on_adversarial_levels(plan):
+def _cube_map_matches_join_on_adversarial_levels(plan):
     """Voxels on the faces and corners of the coordinate field (where the
     join path's clip folds queries and its scatter-max picks the largest
     row), no voxel, one voxel, a full cube, long z runs, four equal batches,
@@ -249,7 +259,7 @@ def _check_cube_map_level(plan, name: str, k1: int) -> None:
         assert torch.equal(got.cpu(), cube_direct_rule(kh.cpu(), kl.cpu(), k1))
 
 
-def test_cube_map_serves_its_largest_k1(plan):
+def _cube_map_serves_its_largest_k1(plan):
     """The widest cube the kernel's shared memory holds, on a full cube of
     12^3 voxels (every voxel in every other's reach) and on one voxel."""
     from gcdlss_tpu_torch.ops.coords import encode_coords, sorted_unique
@@ -264,7 +274,7 @@ def test_cube_map_serves_its_largest_k1(plan):
         assert torch.equal(got, join_neighbor_map(kh, kl, CUBE_MAP_MAX_K1))
 
 
-def test_cube_map_rejects_wrong_inputs(plan):
+def _cube_map_rejects_wrong_inputs(plan):
     kh, kl = plan.levels[1].key_hi, plan.levels[1].key_lo
     with pytest.raises(TypeError):
         cube_neighbor_map(kh.long(), kl, 3)
@@ -279,7 +289,7 @@ def test_cube_map_rejects_wrong_inputs(plan):
             cube_neighbor_map(kh, kl, k1)
 
 
-def test_cube_candidates_matches_plain_and_k3(plan):
+def _cube_candidates_matches_plain_and_k3(plan):
     _for_each([(plan, lvl, k1) for lvl, k1 in PLAN_MAPS], _check_cube_candidates_plan_level)
 
 
@@ -293,7 +303,7 @@ def _check_cube_candidates_plan_level(plan, lvl: int, k1: int) -> None:
     assert torch.equal(got, cube_neighbor_map(kh, kl, k1))
 
 
-def test_cube_candidates_on_adversarial_levels(plan):
+def _cube_candidates_on_adversarial_levels(plan):
     """K4 on the levels no scan makes (caps no multiple of a tile's rows),
     k1 = 3, 5: bit for bit against its plain version, the same bits on every
     launch, one launch counted, and equal to K3 off the field's faces."""
@@ -304,7 +314,7 @@ def test_cube_candidates_on_adversarial_levels(plan):
               chip_smoke.check_cube_candidates_level)
 
 
-def test_plan_kernel_1_builds_the_same_plan(plan):
+def _plan_kernel_1_builds_the_same_plan(plan):
     lv0 = plan.levels[0]
     other = build_unet_plan(lv0.coords, lv0.valid, CAPS, plan_kernel=1)
     assert torch.equal(other.stem_nbr, plan.stem_nbr)
@@ -312,7 +322,7 @@ def test_plan_kernel_1_builds_the_same_plan(plan):
         assert torch.equal(a.nbr3, b.nbr3)
 
 
-def test_cube_candidates_rejects_wrong_inputs(plan):
+def _cube_candidates_rejects_wrong_inputs(plan):
     kh, kl = plan.levels[1].key_hi, plan.levels[1].key_lo
     p, has = _column_ranks(kh != SENTINEL_HI, kh, kl, 3)
     with pytest.raises(TypeError):
@@ -348,7 +358,7 @@ def _for_each_part_shape(plan, check) -> None:
     _for_each([(shape,) for shape in PART_SHAPES], lambda shape: check(*_parts(shape)))
 
 
-def test_conv_parts_match_plain_in_every_mode(plan):
+def _conv_parts_match_plain_in_every_mode(plan):
     """Every mode of P1-P4 (layouts, windows, buffers, window starts; index
     modes rolled and unrolled; product; one-hot) against its plain version:
     P1 1e-3, P2 1e-5, P3 and P4 1e-2 of the reference's scale, index_only
@@ -373,7 +383,7 @@ def _check_parts_every_mode(x, w, nbr, modes, tol) -> None:
                                        atol=tol[m["part"]] * float(ref.abs().max()))
 
 
-def test_onehot_conv_far_entries(plan):
+def _onehot_conv_far_entries(plan):
     """P4 on a book whose entries mostly lie outside their sub-windows (a
     random book) is still the conv, and counts those entries as the plain
     rule does; at each of PART_SHAPES."""
@@ -394,7 +404,7 @@ def _check_onehot_far(x, w, nbr, _, tol) -> None:
     assert int(far) > 0.8 * int((rnd >= 0).sum())
 
 
-def test_window_sum_unaligned_starts(plan):
+def _window_sum_unaligned_starts(plan):
     """Window starts that are no multiple of 8: the column layouts stage
     those runs element by element; at each of PART_SHAPES."""
     _for_each_part_shape(plan, _check_window_sum_unaligned)
@@ -413,7 +423,7 @@ def _check_window_sum_unaligned(x, _w, _nbr, _modes, tol) -> None:
             torch.testing.assert_close(got, ref, rtol=0, atol=tol["P1"] * float(ref.abs().max()))
 
 
-def test_window_sum_adversarial(plan):
+def _window_sum_adversarial(plan):
     """P1 at `WINDOW_SUM_CASES`: NB no multiple of a cluster's 8 windows,
     equal starts, starts at 0 and N - W, unaligned starts, W = 32, N = W, C 8
     .. 256, N no multiple of 128 or 8, random starts at W 6144: every layout
@@ -425,7 +435,7 @@ def test_window_sum_adversarial(plan):
               check_window_sum_case)
 
 
-def test_window_sum_refuses_what_the_kernel_does_not_serve(plan):
+def _window_sum_refuses_what_the_kernel_does_not_serve(plan):
     from gcdlss_tpu_torch.ops import conv_parts as cp
 
     dev = plan.stem_nbr.device
@@ -437,7 +447,7 @@ def test_window_sum_refuses_what_the_kernel_does_not_serve(plan):
         cp.window_sum(store[1:1 + 1024 * 16].view(1024, 16), ws, 512)
 
 
-def test_conv_parts_reject_wrong_inputs(plan):
+def _conv_parts_reject_wrong_inputs(plan):
     _for_each_part_shape(plan, _check_parts_reject)
 
 
@@ -461,7 +471,7 @@ def _check_parts_reject(x, w, nbr, _modes, _tol) -> None:
         cp.onehot_conv(x, nbr[:, :8].contiguous(), w)
 
 
-def test_tile_gemm_ragged_shapes(plan):
+def _tile_gemm_ragged_shapes(plan):
     """P3 at `TILE_GEMM_SHAPES`: N = 1 and around a block's rows, K odd, even
     and 1, Ci from one 16-byte piece up, Co that is no multiple of 8 and two
     column tiles: within the tool's tolerance of the plain version, the same
@@ -485,7 +495,7 @@ def _check_tile_gemm_shape(plan, n: int, k: int, ci: int, co: int) -> None:
     assert torch.equal(out, cp.tile_gemm(x, w))
 
 
-def test_tile_gemm_refuses_what_the_kernel_does_not_serve(plan):
+def _tile_gemm_refuses_what_the_kernel_does_not_serve(plan):
     from gcdlss_tpu_torch.ops import conv_parts as cp
 
     dev = plan.stem_nbr.device
@@ -507,7 +517,7 @@ def test_tile_gemm_refuses_what_the_kernel_does_not_serve(plan):
                 assert cp.tile_gemm_fits(k, ci, co) == (lib.gcd_tile_gemm_scratch(k, ci, co) >= 0)
 
 
-def test_gather_sum_ragged(plan):
+def _gather_sum_ragged(plan):
     """P2 at `GATHER_SUM_CASES`, in every mode that serves the case, rolled
     and (K = 27) unrolled, at N_out 1 .. 4,097, C 8 .. 256, K 1, 8, 27, on
     books with no entry, every entry, entries at the last row of x, and N_in
@@ -519,7 +529,7 @@ def test_gather_sum_ragged(plan):
               check_gather_sum_case)
 
 
-def test_onehot_conv_adversarial(plan):
+def _onehot_conv_adversarial(plan):
     """P4 at `ONEHOT_CASES`: the random book (most entries outside every
     window), no entry, a single row, every entry inside one window; Ci 8 ..
     256, Co 20 .. 256, N_in != N_out: the conv within 1e-2 of max|plain|,
@@ -529,7 +539,7 @@ def test_onehot_conv_adversarial(plan):
     _for_each([(plan.stem_nbr.device, *case) for case in ONEHOT_CASES], check_onehot_case)
 
 
-def test_onehot_conv_refuses_what_the_kernel_does_not_serve(plan):
+def _onehot_conv_refuses_what_the_kernel_does_not_serve(plan):
     from gcdlss_tpu_torch.ops import conv_parts as cp
 
     dev = plan.stem_nbr.device
@@ -740,3 +750,39 @@ def test_discover_variants_match_the_cpu(monkeypatch):
             if not (np.isfinite(got) and abs(got - ref) <= REF_TOL * abs(ref) + 1e-6):
                 failures.append((name, k, got, ref))
     assert not failures, failures
+
+
+def test_gather_gemm_family(plan):
+    """K1 and K2: the plan's and Cylinder3D's books, ragged shapes and a
+    misaligned x, all-absent and full books, the wrappers' refusals."""
+    _run_family(plan, [_gather_gemm_matches_plain, _gather_gemm_ragged_shapes_and_misaligned_x,
+                       _gather_gemm_all_absent_and_full_books, _wrappers_reject_wrong_inputs])
+
+
+def test_cube_map_family(plan):
+    """K3: the plan's maps, the adversarial levels, its largest k1, refusals."""
+    _run_family(plan, [_cube_map_matches_join, _cube_map_matches_join_on_adversarial_levels,
+                       _cube_map_serves_its_largest_k1, _cube_map_rejects_wrong_inputs])
+
+
+def test_cube_candidates_family(plan):
+    """K4: the plan's maps against its plain version and K3, the adversarial
+    levels, the plan it builds, refusals."""
+    _run_family(plan, [_cube_candidates_matches_plain_and_k3,
+                       _cube_candidates_on_adversarial_levels,
+                       _plan_kernel_1_builds_the_same_plan,
+                       _cube_candidates_rejects_wrong_inputs])
+
+
+def test_conv_parts_family(plan):
+    """P1-P4: every mode of the conv-parts tool at its shapes, the one-hot
+    conv's far entries, the window sums' starts and adversarial cases, the
+    product's ragged shapes, the gather sums' ragged cases, the one-hot
+    conv's adversarial books, and every refusal."""
+    _run_family(plan, [_conv_parts_match_plain_in_every_mode, _onehot_conv_far_entries,
+                       _window_sum_unaligned_starts, _window_sum_adversarial,
+                       _window_sum_refuses_what_the_kernel_does_not_serve,
+                       _conv_parts_reject_wrong_inputs, _tile_gemm_ragged_shapes,
+                       _tile_gemm_refuses_what_the_kernel_does_not_serve, _gather_sum_ragged,
+                       _onehot_conv_adversarial,
+                       _onehot_conv_refuses_what_the_kernel_does_not_serve])

@@ -58,7 +58,10 @@ def test_port_imports_no_jax():
             "gcdlss_tpu_torch.tools.discovery_quality", "gcdlss_tpu_torch.ops.asym",
             "gcdlss_tpu_torch.ops.scatter", "gcdlss_tpu_torch.ops.lovasz",
             "gcdlss_tpu_torch.models.voxelizer", "gcdlss_tpu_torch.models.cylinder3d",
-            "gcdlss_tpu_torch.train.cylinder"} <= set(names)
+            "gcdlss_tpu_torch.train.cylinder", "gcdlss_tpu_torch.models.heads",
+            "gcdlss_tpu_torch.models.orca", "gcdlss_tpu_torch.models.wrappers",
+            "gcdlss_tpu_torch.models.backbone_mm", "gcdlss_tpu_torch.losses_zoo",
+            "gcdlss_tpu_torch.parallel.mesh"} <= set(names)
     proc = _run("import importlib, sys\n"
                 f"for n in {names!r}: importlib.import_module(n)\n" + REPORT_FORBIDDEN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
