@@ -5,9 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-or, for one of the last two phases alone after the build and the rates (no
-kernels line, no last line), `python3 chip_smoke.py --only library` or
-`--only dp`.
+or, for one of the last three phases alone after the build and the rates
+(no kernels line, no last line), `python3 chip_smoke.py --only library`,
+`--only dp` or `--only sp`.
 
 Phases, each of which raises on failure:
 
@@ -140,7 +140,20 @@ Phases, each of which raises on failure:
      scans each, against the one-process 2 + 2 step: the ranks the same
      bits, on a plain f32 route counts equal and states within the CPU
      test's tolerances, on the kernels (bf16) losses, counts and states
-     within DP_BF16_TOL.
+     within DP_BF16_TOL;
+ 13. voxel sharding (`sp_phase`): (a) two processes on the card over gloo
+     with CUDA tensors, each holding the whole batch and half of every
+     level's rows (`parallel.sp_step`, `parallel.sp_discover`: halo
+     exchange, K1 forward and K2 backward over window books, K3 for the
+     plan every rank builds), Stage 1 (2 scans) and Stage 2 (2 + 2 scans)
+     on the kernels and on a plain f32 route against the one-process step,
+     then the sharded subm, down and up convs of one Stage-2 level each
+     against their plain versions (K1/K2 on the window books as kernel
+     rows); (b) four processes, dp 2 x sp 2, Stage 1 against the
+     one-process step on the union batch. Prints the halos, window rows,
+     overflows (all 0), worst state differences, step ms a rank and each
+     rank's K1/K2/K3 launches; ranks the same bits, the plain route within
+     the CPU tests' tolerances, the kernels within SP_BF16_TOL.
   Phase 2 also holds K1/K2 at MinkUNet50's pool-conv widths (downs 128,
   256, 512 channels; ups 1,024 -> 256, 1,024 -> 128, 512 -> 96, 384 -> 96)
   on the Stage-1 plan, and phase 4 runs the reference forward in bf16 and
@@ -150,8 +163,8 @@ Phases, each of which raises on failure:
 Each path (the tool's `main`, the Stage-1 slice, each run of the Stage-1.5
 slice, the Stage-2 slice, each Stage-2 variant, each single-model recipe,
 Cylinder3D's Stage-2 run and its trainer, each CLI run, the
-discovery-quality run, each library model's step, the data-parallel runs)
-sets every kernel's launch count to
+discovery-quality run, each library model's step, the data-parallel runs,
+the voxel-sharded ranks' runs) sets every kernel's launch count to
 0 just before it and reads it just after: each kernel of its path must have
 launched.
 Every kernel row carries its bound, the least time the card could take for
@@ -2701,6 +2714,16 @@ def library_phase(device, card: str):
 
 # ---- data parallelism over a process group (dp_phase)
 
+
+def kernel_counters() -> dict:
+    """K1-K4's wrappers, whose `launches` each path resets and reads."""
+    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
+    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
+
+    return {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
+            "K4": cube_candidates_map}
+
+
 DP_WORLD = 2
 DP_CASES = (("stage1", "kernels"), ("stage2", "kernels"), ("stage1", "plain_f32"),
             ("stage2", "plain_f32"))
@@ -2734,7 +2757,9 @@ def dp_run(device, stage: str, route: str, group=None, rank: int = 0, world: int
     (`tools.stage2_split.synthetic_sides`): the one-process step on all
     scans (`group` None) or this rank's share of the group's (its scans,
     `parallel.mesh.shard_voxel_batch`; the state broadcast from rank 0).
-    Returns the metrics, the state (on the CPU) and the step's device ms."""
+    Returns the metrics, the state (on the CPU), the step's device ms, the
+    process's peak memory over the step and that peak less what the process
+    held when the step began (the step's own)."""
     import torch
 
     from gcdlss_tpu_torch.parallel import mesh
@@ -2763,12 +2788,16 @@ def dp_run(device, stage: str, route: str, group=None, rank: int = 0, world: int
     with (plain_convs(round_operands=False) if route == "plain_f32"
           else contextlib.nullcontext()):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = step()
         end.record()
         torch.cuda.synchronize()
-    out = {"ms": start.elapsed_time(end),
+    peak = torch.cuda.max_memory_allocated()
+    out = {"ms": start.elapsed_time(end), "peak_gib": peak / 2 ** 30,
+           "step_gib": (peak - held) / 2 ** 30,
            "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
            "valid": [int(sup["valid"].sum())] + ([] if stage == "stage1"
                                                    else [int(unsup["valid"].sum())])}
@@ -2787,11 +2816,7 @@ def dp_worker(rank: int, world: int, tmp: str) -> None:
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
-    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
-    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
-
-    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
-               "K4": cube_candidates_map}
+    kernels = kernel_counters()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     device = torch.device("cuda", 0)
@@ -2859,11 +2884,7 @@ def dp_phase(device, card: str) -> dict:
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
-    from gcdlss_tpu_torch.ops.fused_conv import gather_gemm, gather_gemm_backward
-    from gcdlss_tpu_torch.ops.plan_kernel import cube_candidates_map, cube_neighbor_map
-
-    kernels = {"K1": gather_gemm, "K2": gather_gemm_backward, "K3": cube_neighbor_map,
-               "K4": cube_candidates_map}
+    kernels = kernel_counters()
     launches = {k: 0 for k in kernels}
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
@@ -2967,7 +2988,379 @@ def dp_phase(device, card: str) -> dict:
     return launches
 
 
-ALONE = {"library": library_phase, "dp": dp_phase}  # `--only NAME`
+# ---- voxel sharding over a process group (sp_phase)
+
+SP_WORLD = 2
+# dp x sp: two batch groups (one scan each, caps `default_caps(CAP0 // 2)`)
+# of two-rank rings
+DPSP_DP, DPSP_SP = 2, 2
+DPSP_CASES = (("stage1", "kernels"), ("stage1", "plain_f32"))
+# the sharded convs held against their plain versions on the card, on rank
+# 0's window books of the Stage-2 plan: (name, kind, level, Ci, Co)
+SP_CONV_CASES = (("L1 k3 32->32", "subm", 1, 32, 32), ("down L1->L2 32->32", "down", 1, 32, 32),
+                 ("up L2->L1 128->96", "up", 1, 128, 96))
+# kernels route (`sp_phase`): relative, of the total loss, of each term, of
+# n_cand, of n_rel and the queue's counts, of the state; ~10x what the
+# first run measured (total loss 2.1e-5, the terms up to 1.0e-3, n_cand
+# 3.8e-5, n_rel 3.4e-3, state 7.2e-4 relative; NVIDIA H100 80GB HBM3,
+# 700 W); a missing reduction or a dropped halo row moves them by tens of
+# percent. The queue's features are held on the plain f32 route alone:
+# here the two runs mine other candidates (n_rel differs), so the queues
+# hold other rows and only their summed counts and head compare
+SP_BF16_TOL = {"loss": 2e-4, "terms": 1e-2, "n_cand": 4e-4, "counts": 3e-2, "state": 1e-2}
+
+
+def dpsp_config(route: str):
+    """A dp x sp batch group's Stage-1 config: one scan, `default_caps(CAP0 // 2)`."""
+    import dataclasses
+
+    from gcdlss_tpu_torch.train.common import default_caps
+
+    return dataclasses.replace(dp_config("stage1", route), voxel_caps=default_caps(CAP0 // 2))
+
+
+def sp_halos(device) -> dict:
+    """The halos every sharded run takes, sized here from this run's plans
+    (`parallel.sp_step.backbone_halos`): Stage 1's at sp 2, Stage 2's
+    combined plan's and, per route, its LaserMix plan's (`probe_mix_plan`,
+    the first step's draws), and the dp x sp groups' (the larger of the two
+    groups' plans, each at sp 2)."""
+    from gcdlss_tpu_torch.parallel import mesh
+    from gcdlss_tpu_torch.parallel.sp_discover import probe_mix_plan
+    from gcdlss_tpu_torch.parallel.sp_step import backbone_halos
+    from gcdlss_tpu_torch.tools.stage2_split import synthetic_sides
+    from gcdlss_tpu_torch.train.common import plan_and_gather
+    from gcdlss_tpu_torch.train.discover import _combine_batches, create_discover_state
+
+    sup, unsup = synthetic_sides(device)
+    out = {"stage1": backbone_halos(plan_and_gather(sup, dp_config("stage1", "kernels")
+                                                    .voxel_caps)[0], SP_WORLD)}
+    caps = dpsp_config("kernels").voxel_caps
+    groups = [backbone_halos(plan_and_gather(mesh.shard_voxel_batch(sup, BATCH, g, DPSP_DP),
+                                             caps)[0], DPSP_SP) for g in range(DPSP_DP)]
+    out["dpsp"] = tuple(max(h) for h in zip(*groups))
+    for route in ("kernels", "plain_f32"):
+        cfg = dp_config("stage2", route)
+        plan = plan_and_gather(_combine_batches(sup, unsup, cfg), cfg.voxel_caps)[0]
+        with (plain_convs(round_operands=False) if route == "plain_f32"
+              else contextlib.nullcontext()):
+            mix = probe_mix_plan(cfg, create_discover_state(0, cfg, device=device), sup, unsup)
+        out[("stage2", route)] = (backbone_halos(plan, SP_WORLD), backbone_halos(mix, SP_WORLD))
+    return out
+
+
+def sp_run(device, stage: str, route: str, halos, dpsp: bool = False, rank: int = 0) -> dict:
+    """One sharded step of `stage` from the state of seed 0 on the synthetic
+    sides, this rank's part (`make_sp_pretrain_step` /
+    `make_sp_discover_step` over the world; with `dpsp`,
+    `make_dp_sp_pretrain_step` on group rank // DPSP_SP's scan). Returns
+    what `dp_run` returns (ms and memory of the first step), the metrics
+    the step's, the kernels' launch counts read after it and, on the
+    kernels, the ms of a second step."""
+    import torch
+
+    from gcdlss_tpu_torch.parallel import mesh
+    from gcdlss_tpu_torch.parallel import sp_discover, sp_step
+    from gcdlss_tpu_torch.tools.stage2_split import synthetic_sides
+    from gcdlss_tpu_torch.train.discover import create_discover_state
+    from gcdlss_tpu_torch.train.pretrain import create_pretrain_state
+
+    cfg = dpsp_config(route) if dpsp else dp_config(stage, route)
+    sup, unsup = synthetic_sides(device)
+    if stage == "stage1":
+        state = create_pretrain_state(0, cfg, device)
+        models = {"model": state.model}
+        if dpsp:
+            batch = mesh.shard_voxel_batch(sup, BATCH, rank // DPSP_SP, DPSP_DP)
+            fn = sp_step.make_dp_sp_pretrain_step(cfg, halos, DPSP_SP, device)
+        else:
+            batch = sup
+            fn = sp_step.make_sp_pretrain_step(cfg, None, halos, device)
+        step = lambda: fn(state, batch)[1]
+    else:
+        state = create_discover_state(0, cfg, device=device)
+        models = {"student": state.student, "teacher": state.teacher}
+        fn = sp_discover.make_sp_discover_step(cfg, None, *halos, device)
+        step = lambda: fn(state, sup, unsup)[1]
+    with (plain_convs(round_operands=False) if route == "plain_f32"
+          else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step()
+        end.record()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"ms": start.elapsed_time(end), "peak_gib": peak / 2 ** 30,
+           "step_gib": (peak - held) / 2 ** 30,
+           "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+           "launches": {k: fn.launches for k, fn in kernel_counters().items()}}
+    for who, m in models.items():
+        out[who] = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    if stage == "stage2":
+        out["queue"] = tuple(a.detach().cpu() for a in state.queue)
+    if route == "kernels":
+        # a second step: the first one pays the process's first use of the
+        # card and of the group
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        out["warm_ms"] = start.elapsed_time(end)
+    return out
+
+
+def window_rows(caps: tuple, halos: tuple, world: int) -> list:
+    """Rows of each level's k3 window (block + 2 x padded halo) on a rank
+    of a ring of `world` (the same on every rank)."""
+    from gcdlss_tpu_torch.parallel.voxel_shard import padded_halo
+
+    return [c // world + 2 * padded_halo(halos[1 + l], c // world) for l, c in enumerate(caps)]
+
+
+def _window_valid(valid, ln: int, halo: int, rank: int):
+    """The level's validity at a rank's window rows (the wrapped halos not valid)."""
+    import torch
+
+    g = torch.arange(ln + 2 * halo, device=valid.device) + rank * ln - halo
+    ok = (g >= 0) & (g < valid.shape[0])
+    return valid[g.clamp(0, valid.shape[0] - 1)] & ok
+
+
+def sp_conv_checks(device, halos, rank: int) -> tuple:
+    """The sharded subm, down and up convs (`parallel.voxel_shard`) on the
+    Stage-2 plan's window books at SP_CONV_CASES: whole (exchange, K1, K2,
+    fold) against the same under `plain_convs` (the bf16-rounded operands,
+    f32 sums), outputs and the input's and W's gradients; and on rank 0 K1
+    and K2 alone on the window books against their plain versions
+    (`gemm_phase`: kernel rows). Returns (the rows, the worst relative
+    error of the whole convs)."""
+    import torch
+    import torch.distributed as dist
+
+    from gcdlss_tpu_torch.parallel import voxel_shard as vs
+    from gcdlss_tpu_torch.parallel.sp_step import shard_plan
+    from gcdlss_tpu_torch.tools.stage2_split import synthetic_sides
+    from gcdlss_tpu_torch.train.common import plan_and_gather
+    from gcdlss_tpu_torch.train.discover import _combine_batches
+
+    cfg = dp_config("stage2", "kernels")
+    sup, unsup = synthetic_sides(device)
+    plan = plan_and_gather(_combine_batches(sup, unsup, cfg), cfg.voxel_caps)[0]
+    group = dist.group.WORLD
+    sp = shard_plan(plan, group, halos)
+    worst, cases = 0.0, []
+    for name, kind, lvl, ci, co in SP_CONV_CASES:
+        fine, coarse = plan.levels[lvl].valid, plan.levels[lvl + 1].valid
+        book, pool = sp.levels[lvl].nbr3, sp.pools[lvl]
+        if kind == "subm":
+            full, ln, halo = fine, fine.shape[0] // SP_WORLD, book.halo
+            cases.append((f"sp window {name}", _window_valid(fine, ln, halo, rank), book.nbr,
+                          book.adj, ci, co))
+            conv = lambda x, w: vs.sp_gather_conv(x, book, w)[0]
+        elif kind == "down":
+            full = fine
+            cases.append((f"sp window {name}", sp.levels[lvl].valid, pool.children, pool.upmap,
+                          ci, co))
+            conv = lambda x, w: vs.sp_down_conv(x, pool, w)[0]
+        else:
+            full = coarse
+            cases.append((f"sp window {name}", _window_valid(coarse, pool.lc, pool.halo, rank),
+                          pool.upmap, pool.children, ci, co))
+            conv = lambda x, w: vs.sp_up_conv(x, pool, w)[0]
+        ln = full.shape[0] // SP_WORLD
+        gen = torch.Generator(device=device).manual_seed(11)
+        x_all = torch.randn(full.shape[0], ci, device=device, generator=gen) * full[:, None]
+        w = torch.randn(8 if kind != "subm" else 27, ci, co, device=device, generator=gen) * 0.1
+        got = []
+        for plain in (False, True):
+            xl = x_all[rank * ln:(rank + 1) * ln].to(torch.bfloat16).requires_grad_()
+            wl = w.to(torch.bfloat16).requires_grad_()
+            with plain_convs() if plain else contextlib.nullcontext():
+                out = conv(xl, wl)
+                gen_c = torch.Generator(device=device).manual_seed(12 + rank)
+                out.float().backward(torch.randn(out.shape, device=device, generator=gen_c))
+            got.append((out.detach().float(), xl.grad.float(), wl.grad.float()))
+        for a, b in zip(*got):
+            worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6))
+    torch.cuda.synchronize()
+    rows = gemm_phase(None, device, "stage2", cases) if rank == 0 else []
+    return rows, worst
+
+
+def sp_worker(rank: int, world: int, tmp: str, halos: dict, measured: dict) -> None:
+    """A rank of `sp_phase`'s runs: gloo over CUDA tensors, every rank on
+    card 0, a `FileStore` in `tmp`. World SP_WORLD: every case of DP_CASES
+    sharded over the two ranks, then `sp_conv_checks`; world DPSP_DP x
+    DPSP_SP: DPSP_CASES on the dp x sp mesh. Saves the results, each kernels
+    case's launches and the conv rows to `tmp/{sp|dpsp}{rank}.pt`."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    MEASURED.update(measured)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dpsp = world != SP_WORLD
+    tag = "dpsp" if dpsp else "sp"
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{tag}", rank=rank,
+                            world_size=world)
+    kernels = kernel_counters()
+    try:
+        res, launches = {}, {}
+        for stage, route in (DPSP_CASES if dpsp else DP_CASES):
+            h = halos["dpsp"] if dpsp else halos[stage] if stage == "stage1" else halos[
+                (stage, route)]
+            for fn in kernels.values():
+                fn.launches = 0
+            res[(stage, route)] = sp_run(device, stage, route, h, dpsp, rank)
+            if route == "kernels":  # the first step's
+                launches[stage] = res[(stage, route)]["launches"]
+        rows, conv_err = ([], None) if dpsp else sp_conv_checks(
+            device, halos[("stage2", "kernels")][0], rank)
+        torch.save({"results": res, "launches": launches, "rows": rows, "conv_err": conv_err},
+                   f"{tmp}/{tag}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_check(name: str, one: dict, grp: list, route: str, stage: str, card: str) -> None:
+    """Hold a sharded case's ranks to each other (the same bits) and to the
+    one-process step (`one`); print its line. Raises on a miss."""
+    worst, where, same = _state_diff(grp[1], grp[0])
+    for other in grp[2:]:
+        same = same and _state_diff(other, grp[0])[2]
+    if not same:
+        raise AssertionError(f"sp {name}: the ranks end with different states "
+                             f"(worst {worst} at {where})")
+    worst, where, _ = _state_diff(grp[0], one)
+    m1, mg = one["metrics"], grp[0]["metrics"]
+    counts = {k: (int(m1[k]), int(mg[k])) for k in DP_COUNTS if k in m1}
+    losses = {k: (float(m1[k]), float(mg[k])) for k, v in m1.items() if v.is_floating_point()}
+    loss_rel = {k: abs(b - a) / max(abs(a), 1e-12) for k, (a, b) in losses.items()}
+    qd, qc = 0.0, True
+    if stage == "stage2":
+        qd = float((grp[0]["queue"][0] - one["queue"][0]).abs().max()) / max(
+            float(one["queue"][0].abs().max()), 1e-3)
+        qc = torch_equal(grp[0]["queue"][1], one["queue"][1]) and torch_equal(
+            grp[0]["queue"][2], one["queue"][2])
+    log(f"sp {name}: sp_overflow {int(mg['sp_overflow'])}, counts (one, sharded) {counts}; "
+        f"losses relative {json.dumps({k: float(f'{v:.3e}') for k, v in loss_rel.items()})}; "
+        f"state worst {worst:.3e} at {where}"
+        + (f"; queue feats {qd:.3e}, counts and head {'equal' if qc else 'differ'}"
+           if stage == "stage2" else "")
+        + f" | step {' / '.join(f'{r['ms']:.1f}' for r in grp)} ms a rank"
+        + (f" (the second {' / '.join(f'{r['warm_ms']:.1f}' for r in grp)})"
+           if "warm_ms" in grp[0] else "")
+        + f", {one['ms']:.1f} ms one process"
+        + (f" (again {one['warm_ms']:.1f})" if "warm_ms" in one else "")
+        + f"; peak {' / '.join(f'{r['peak_gib']:.3f}' for r in grp)} GiB a rank, the step's own "
+        f"{' / '.join(f'{r['step_gib']:.3f}' for r in grp)}; one process {one['step_gib']:.3f} "
+        f"GiB the step's own ({card})")
+    if int(mg["sp_overflow"]) != 0 or counts["plan_overflow"] != (0, 0):
+        raise AssertionError(f"sp {name}: overflow, sp {int(mg['sp_overflow'])}, "
+                             f"plan {counts['plan_overflow']}")
+    if route == "plain_f32":
+        bad = [k for k, (a, b) in counts.items() if a != b]
+        bad += [k for k, (a, b) in losses.items() if not abs(b - a) <= 1e-5 * abs(a) + 1e-6]
+        if worst > 1e-4:
+            bad.append(f"state {where}")
+        if stage == "stage2" and not (qd <= 1e-4 and qc):
+            bad.append("queue")
+    else:
+        bad = [k for k, (a, b) in losses.items() if not np.isfinite(b)]
+        bad += [k for k, v in loss_rel.items()
+                if not v <= SP_BF16_TOL["loss" if k == "loss" else "terms"]]
+        near = lambda a, b, tol: abs(b - a) <= tol * abs(a)
+        if stage == "stage2":
+            if not near(*counts["n_cand"], SP_BF16_TOL["n_cand"]):
+                bad.append("n_cand")
+            if not near(*counts["n_rel"], SP_BF16_TOL["counts"]):
+                bad.append("n_rel")
+            if not (near(float(one["queue"][1].sum()), float(grp[0]["queue"][1].sum()),
+                         SP_BF16_TOL["counts"]) and torch_equal(grp[0]["queue"][2],
+                                                                one["queue"][2])):
+                bad.append("queue counts")
+        if not worst <= SP_BF16_TOL["state"]:
+            bad.append(f"state {where}")
+    if bad:
+        raise AssertionError(f"sp {name}: the sharded step is off the one-process step in {bad}")
+
+
+def sp_phase(device, card: str):
+    """Voxel sharding on the card, at the `bench.py` shapes (MinkUNet34,
+    80k-point scans at 0.05 m, `default_caps`). (a) Two processes on the one
+    card over gloo with CUDA tensors (`sp_worker`), each holding the whole
+    batch and half of every level's rows: Stage 1 (2 scans, cap0 138,240)
+    and Stage 2 (2 + 2 scans, cap0 276,480), on the kernels (bf16) and on a
+    plain f32 route, against the one-process step in this process; then the
+    sharded subm, down and up convs on one Stage-2 level each against their
+    plain versions (`sp_conv_checks`). (b) Four processes, dp 2 x sp 2,
+    Stage 1 (one scan a batch group) against the one-process step on the
+    union batch. Prints the halos, the window rows, the overflows, the
+    worst state difference, the step ms and peak memory per rank (beside
+    the one-process step's) and each rank's K1/K2/K3 launches; fails on
+    any overflow, ranks that differ in any bit, the plain route off the CPU
+    tests' tolerances, the kernels off SP_BF16_TOL, a sharded conv off
+    OUT_TOL, or a kernel a sharded rank did not launch.
+    Returns (the conv rows, the sharded ranks' launches)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    halos = sp_halos(device)
+    s1, s2 = dp_config("stage1", "kernels").voxel_caps, dp_config("stage2", "kernels").voxel_caps
+    log(f"sp halos (stem, subm0..4, pool0..3): stage 1 {halos['stage1']}; stage 2 "
+        + "; ".join(f"{r} {halos[('stage2', r)][0]}, mix {halos[('stage2', r)][1]}"
+                    for r in ("kernels", "plain_f32"))
+        + f"; dp x sp {halos['dpsp']} | k3 window rows a level (blocks of "
+        f"{[c // SP_WORLD for c in s1]} / {[c // SP_WORLD for c in s2]}): stage 1 "
+        f"{window_rows(s1, halos['stage1'], SP_WORLD)}, stage 2 "
+        f"{window_rows(s2, halos[('stage2', 'kernels')][0], SP_WORLD)}, mix "
+        f"{window_rows(s2, halos[('stage2', 'kernels')][1], SP_WORLD)}, dp x sp "
+        f"{window_rows(dpsp_config('kernels').voxel_caps, halos['dpsp'], DPSP_SP)}")
+    single = {case: dp_run(device, *case) for case in DP_CASES}
+    for case in DP_CASES:  # a second one-process step, as the ranks take one
+        if case[1] == "kernels":
+            single[case]["warm_ms"] = dp_run(device, *case)["ms"]
+    torch.cuda.empty_cache()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mp.start_processes(sp_worker, args=(SP_WORLD, tmp, halos, dict(MEASURED)),
+                           nprocs=SP_WORLD, start_method="spawn", join=True)
+        ranks = [torch.load(f"{tmp}/sp{r}.pt") for r in range(SP_WORLD)]
+        torch.cuda.empty_cache()
+        mp.start_processes(sp_worker, args=(DPSP_DP * DPSP_SP, tmp, halos, dict(MEASURED)),
+                           nprocs=DPSP_DP * DPSP_SP, start_method="spawn", join=True)
+        dpsp = [torch.load(f"{tmp}/dpsp{r}.pt") for r in range(DPSP_DP * DPSP_SP)]
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4")}
+    for tag, group in (("(a)", ranks), ("(b) dp 2 x sp 2", dpsp)):
+        for r, res in enumerate(group):
+            for stage, counts in res["launches"].items():
+                log(f"sp {tag} rank {r} {stage} kernels launches {counts}")
+                for k, n in counts.items():
+                    launches[k] += n
+                if not all(counts[k] > 0 for k in ("K1", "K2", "K3")):
+                    raise AssertionError(f"sp {tag} rank {r} {stage}: a kernel was not "
+                                         f"launched: {counts}")
+    for case in DP_CASES:
+        _sp_check(f"(a) {case[0]} {case[1]}", single[case],
+                  [r["results"][case] for r in ranks], case[1], case[0], card)
+    for case in DPSP_CASES:
+        _sp_check(f"(b) dp 2 x sp 2 {case[0]} {case[1]}", single[case],
+                  [r["results"][case] for r in dpsp], case[1], case[0], card)
+    conv_err = max(r["conv_err"] for r in ranks)
+    log(f"sp convs on the window books ({', '.join(c[0] for c in SP_CONV_CASES)}): sharded "
+        f"kernels vs plain, worst relative {conv_err:.3e} (outputs, dX, dW)")
+    if not conv_err <= OUT_TOL:
+        raise AssertionError(f"sp convs: kernels off the plain versions by {conv_err}")
+    return ranks[0]["rows"], launches
+
+
+ALONE = {"library": library_phase, "dp": dp_phase, "sp": sp_phase}  # `--only NAME`
 
 
 def main() -> int:
@@ -3032,6 +3425,7 @@ def main() -> int:
     launches_dq = phase("discovery quality", discovery_phase, device, card)
     lib_rows, launches_lib = phase("library", library_phase, device, card)
     launches_dp = phase("dp", dp_phase, device, card)
+    sp_rows, launches_sp = phase("sp", sp_phase, device, card)
     log(f"phases (wall s): {json.dumps({k: round(v, 1) for k, v in wall.items()})}; "
         f"remat peaks (GiB) {peaks_remat}")
     # `launches`: K1-K4 on the Stage-2 path (the training path that runs all
@@ -3042,10 +3436,11 @@ def main() -> int:
     # run, `launches_cylinder` the Cylinder3D Stage-2 and trainer paths
     # together, `launches_library` the seven library models' steps together,
     # `launches_dp` the data-parallel group runs: (a)'s and both ranks' of
-    # (b) on the kernels), P1-P4 in
+    # (b) on the kernels, `launches_sp` the voxel-sharded runs' ranks on the
+    # kernels: (a)'s two and (b)'s four), P1-P4 in
     # the tool's main run (their only path; K1's launches there are
     # `launches_parts`)
-    rows += cyl_rows + lib_rows
+    rows += cyl_rows + lib_rows + sp_rows
     for r in rows:
         r["launches"] = launches_s2[r["name"][:2]]
         r["launches_stage1"] = launches_s1[r["name"][:2]]
@@ -3063,11 +3458,12 @@ def main() -> int:
         r["launches_cli"] = launches_cli["total"][r["name"][:2]]
         r["launches_library"] = launches_lib["total"].get(r["name"][:2], 0)
         r["launches_dp"] = launches_dp.get(r["name"][:2], 0)
+        r["launches_sp"] = launches_sp.get(r["name"][:2], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("launches_stage1", "launches_stage15", "launches_variants", "launches_nops",
              "launches_cli", "launches_quality", "launches_cylinder", "launches_library",
-             "launches_dp", "launches_parts",
+             "launches_dp", "launches_sp", "launches_parts",
              "bound_measured_ms",
              "bound_dense_ms", "fill",
              "far_entries",

@@ -6,6 +6,12 @@ the pool convs included, goes through the gather-GEMM kernels
 (`ops.fused_conv`) on the card and their plain versions on the CPU.
 Parameter names follow the reference checkpoint (`kernel` for convs,
 `weight`/`bias`/`running_mean`/`running_var` for batch norms).
+
+Given a rank's voxel-sharded plan (`parallel.sp_step.shard_plan`: window
+books in place of the plan's books), the convs take the sharded route of
+`parallel.voxel_shard`, still on K1/K2, and batch norm takes its statistics
+over the ring's rows when the step sets `batch_norm_group`, as the JAX
+package's layers do when given `sp_axis`.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from torch import nn
 
 from ..ops.conv import masked_batch_norm_stats
 from ..ops.fused_conv import pool_conv, subm_conv
+from ..parallel.voxel_shard import (WindowBook, WindowPool, sp_down_conv, sp_gather_conv,
+                                    sp_up_conv)
 
 
 def mask_rows(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -42,6 +50,8 @@ class SparseConv(nn.Module):
             torch.empty(kernel_volume, in_channels, out_channels), generator))
 
     def forward(self, x, nbr, valid):
+        if isinstance(nbr, WindowBook):
+            return mask_rows(sp_gather_conv(x, nbr, self.kernel)[0], valid)
         return mask_rows(subm_conv(x, nbr, self.kernel), valid)
 
 
@@ -55,6 +65,8 @@ class SparseDownConv(nn.Module):
             torch.empty(8, in_channels, out_channels), generator))
 
     def forward(self, x, pool, out_valid):
+        if isinstance(pool, WindowPool):
+            return mask_rows(sp_down_conv(x, pool, self.kernel)[0].to(x.dtype), out_valid)
         return mask_rows(pool_conv(x, pool.children, pool.upmap, self.kernel), out_valid)
 
 
@@ -68,6 +80,8 @@ class SparseUpConv(nn.Module):
             torch.empty(8, in_channels, out_channels), generator))
 
     def forward(self, x_coarse, pool, out_valid):
+        if isinstance(pool, WindowPool):
+            return mask_rows(sp_up_conv(x_coarse, pool, self.kernel)[0], out_valid)
         return mask_rows(pool_conv(x_coarse, pool.upmap, pool.children, self.kernel),
                          out_valid)
 

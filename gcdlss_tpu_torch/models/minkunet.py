@@ -15,6 +15,12 @@ so its state dicts map on key by key (`utils.weights`). Kernel offsets keep
 this repository's order (z fastest). `MinkUNetSeg` is the Stage-1 model,
 `MinkUNetRC` the Stage-2 one (`gcdlss_tpu/models/minkunet.py:312-395`).
 
+Given a rank's voxel-sharded plan (`parallel.sp_step.shard_plan`) the same
+modules run the rank's row block (`models.layers`); the halos travel in the
+plan's window books, ten of them in the JAX package's order (stem,
+subm0..4, pool0..3). The outputs are the rank's rows, with the entries the
+windows dropped in `sp_overflow` (`MinkUNetBackbone.sp_overflow`).
+
 Precision (docs/ARCHITECTURE.md §3): activations in `dtype` (bf16 on the
 card), parameters, batch-norm statistics, the head and the loss in f32.
 """
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.voxel_shard import WindowBook
 from .layers import (Linear, NormedLinear, SparseBatchNorm, SparseConv, SparseDownConv,
                      SparseUpConv, frozen_batch_norm_stats, mask_rows)
 
@@ -202,6 +209,25 @@ class MinkUNetBackbone(nn.Module):
             x = getattr(self, f"block{5 + j}")(x, lv[lvl].nbr3, lv[lvl].valid)
         return x  # [cap0, planes[7] x expansion]
 
+    def sp_overflow(self, plan) -> torch.Tensor:
+        """The book entries a sharded plan's windows dropped over one
+        forward, each conv counting its book's once, as the JAX package's
+        layers sow them: the stem, every block's k3 convs on its level's
+        book, and each pool edge twice (its down and its up conv)."""
+        total = plan.stem_nbr.overflow + 2 * sum(p.overflow for p in plan.pools)
+        for name, layer in self.named_children():
+            if isinstance(layer, ResLayer):
+                b = int(name[len("block"):])
+                lvl = b if b <= 4 else 8 - b
+                convs = sum(isinstance(m, SparseConv) for m in layer.modules())
+                total = total + convs * plan.levels[lvl].nbr3.overflow
+        return total
+
+
+def is_sharded(plan) -> bool:
+    """Whether `plan` is a rank's voxel-sharded plan (window books)."""
+    return isinstance(plan.stem_nbr, WindowBook)
+
 
 HEADS = ("linear", "cosine")
 
@@ -236,7 +262,10 @@ class MinkUNetSeg(nn.Module):
     def forward(self, plan, feats):
         h = self.encoder(plan, feats).float()
         logits = self.encoder.final(h)
-        return {"logits": mask_rows(logits, plan.levels[0].valid), "feats": h}
+        out = {"logits": mask_rows(logits, plan.levels[0].valid), "feats": h}
+        if is_sharded(plan):
+            out["sp_overflow"] = self.encoder.sp_overflow(plan)
+        return out
 
 
 class MinkUNetRC(nn.Module):
@@ -266,12 +295,15 @@ class MinkUNetRC(nn.Module):
     def forward(self, plan, feats):
         h = self.encoder(plan, feats).float()
         valid = plan.levels[0].valid
-        return {
+        out = {
             "feats": h,
             "logits_known": mask_rows(self.encoder.final(h), valid),
             "logits_ncc": mask_rows(self.encoder.final2(h), valid),
             "logits_novel": mask_rows(self.encoder.final3(h), valid),
         }
+        if is_sharded(plan):
+            out["sp_overflow"] = self.encoder.sp_overflow(plan)
+        return out
 
 
 def assemble_dummy_logits(out: dict) -> torch.Tensor:

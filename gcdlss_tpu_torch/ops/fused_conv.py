@@ -182,15 +182,18 @@ class SubmConvFn(torch.autograd.Function):
 
 
 class PoolConvFn(torch.autograd.Function):
-    """k=2 s=2 pool conv (down: children/upmap, up: upmap/children); the
-    adjoint book is the partner book at the same offset, with no flip."""
+    """k=2 s=2 pool conv (down: children/upmap, up: upmap/children), or any
+    conv over an explicit book pair (the voxel-sharded window books); the
+    adjoint book is the partner book at the same offset, with no flip.
+    `f32_sums`: the result stays f32 whatever x's type (partial sums that
+    are added across ranks before they are rounded); dX keeps x's type."""
 
     @staticmethod
-    def forward(ctx, x, nbr_fwd, nbr_adj, w):
+    def forward(ctx, x, nbr_fwd, nbr_adj, w, f32_sums=False):
         xk, wk, out_dtype = _kernel_operands(x.contiguous(), w)
         ctx.save_for_backward(xk, nbr_adj, wk)
         ctx.out_dtype, ctx.w_dtype = out_dtype, w.dtype
-        return gather_gemm(xk, nbr_fwd, wk, out_dtype=out_dtype)
+        return gather_gemm(xk, nbr_fwd, wk, out_dtype=torch.float32 if f32_sums else out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -198,7 +201,7 @@ class PoolConvFn(torch.autograd.Function):
         dx, dw = gather_gemm_backward(xk, g.to(xk.dtype).contiguous(), nbr_adj, wk,
                                       out_dtype=ctx.out_dtype,
                                       need_dx=ctx.needs_input_grad[0])
-        return dx, None, None, dw.to(ctx.w_dtype)
+        return dx, None, None, dw.to(ctx.w_dtype), None
 
 
 def _out_dtype(x: torch.Tensor) -> torch.dtype:
@@ -213,6 +216,8 @@ def subm_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tens
 
 
 def pool_conv(x: torch.Tensor, nbr_fwd: torch.Tensor, nbr_adj: torch.Tensor,
-              w: torch.Tensor) -> torch.Tensor:
-    """Strided k=2 s=2 conv over an explicit book pair, [nbr_fwd rows, Co]."""
-    return PoolConvFn.apply(x, nbr_fwd, nbr_adj, w)
+              w: torch.Tensor, f32_sums: bool = False) -> torch.Tensor:
+    """Sparse conv over an explicit book pair (a k=2 s=2 pool edge, or a
+    sharded conv's window books), [nbr_fwd rows, Co] in x's dtype, or f32
+    with `f32_sums`."""
+    return PoolConvFn.apply(x, nbr_fwd, nbr_adj, w, f32_sums)

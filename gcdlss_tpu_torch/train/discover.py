@@ -477,7 +477,22 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
         return _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group)
 
 
-def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group):
+def apply_model(model, plan, feats, kind: str):
+    """The seam every backbone pass of the step goes through (the JAX
+    package's `apply_model`): (outputs, entries the windows dropped) of
+    `model` on `plan`. `kind` is "main" (the combined plan: the teacher and
+    the student) or "mix" (the LaserMix plan). Here, the one-process pass;
+    `parallel.sp_discover` runs the passes voxel-sharded instead."""
+    del kind
+    return model(plan, feats), None
+
+
+def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group,
+                apply=apply_model, probe=False):
+    """The step's body. `apply`: the seam of its backbone passes
+    (`apply_model`). `probe`: return the LaserMix plan as soon as it is
+    built, the teacher pass run and nothing updated but the teacher's
+    batch-norm statistics (`parallel.sp_discover.probe_mix_plan`)."""
     check_config(cfg)
     if draws is None:
         draws = draw_step_randoms(state, cfg)
@@ -500,7 +515,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
 
     # ---- teacher forward: train-mode BN, its statistics become the teacher's ----
     with torch.no_grad(), torch.profiler.record_function("discover/teacher"):
-        out_t = teacher(plan, feats0)
+        out_t, ovf_t = apply(teacher, plan, feats0, "main")
         dummy_t = assemble_dummy_logits(out_t)
         feats_t = out_t["feats"]
         probs_t = torch.softmax(dummy_t, dim=-1)
@@ -513,6 +528,8 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
             mix_plan, mix_feats0, mix_labels0 = mixed_plan(
                 lcfg, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
                 draws["num_areas"], sup_pb, unsup_pb)
+    if probe:
+        return mix_plan
 
     # ---- NCC candidate mining and the novel assignment (teacher side, no grad) ----
     with torch.no_grad(), torch.profiler.record_function("discover/mining"):
@@ -547,7 +564,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
 
     # ---- student forwards, one loss, one backward ----
     with torch.profiler.record_function("discover/student_main_fwd"):
-        out_s = student(plan, feats0)
+        out_s, ovf_s = apply(student, plan, feats0, "main")
         dummy_s = assemble_dummy_logits(out_s)
         feats_s = out_s["feats"]
         sup_targets = torch.where(sup_mask, mapped0, -1)
@@ -556,7 +573,9 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
                                               unsup_mask, group=group)
     with torch.profiler.record_function("discover/student_mix_fwd"):
         if cfg.mix_mode == "lasermix":
-            dummy_mix = assemble_dummy_logits(student(mix_plan, mix_feats0))
+            out_mix, ovf_m = apply(student, mix_plan, mix_feats0, "mix")
+            dummy_mix = assemble_dummy_logits(out_mix)
+            del out_mix  # only the assembled logits live on into the backward
             l_lm = cfg.lasermix_coeff * cross_entropy(dummy_mix, mix_labels0,
                                                       mix_plan.levels[0].valid, group=group)
         elif cfg.mix_mode == "feature":
@@ -641,6 +660,8 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
     if mix_plan is not None:
         plan_ovf = plan_ovf + plan_capacity_overflow(mix_plan)
     plan_ovf = all_reduce(plan_ovf, group)
+    if ovf_t is not None:  # a sharded run: the windows' dropped entries
+        metrics["sp_overflow"] = ovf_t + ovf_s + (ovf_m if mix_plan is not None else 0)
     metrics.update({
         "tau": state.tau.detach().clone(),
         "n_cand": n_cand,

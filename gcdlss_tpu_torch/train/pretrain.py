@@ -66,32 +66,47 @@ def create_pretrain_state(seed: int, cfg: PretrainConfig, device="cuda") -> Trai
     return TrainState(model=model, optimizer=make_sgd(cfg, model.parameters()))
 
 
-def pretrain_train_step(state: TrainState, batch: dict, cfg: PretrainConfig, group=None):
+def pretrain_train_step(state: TrainState, batch: dict, cfg: PretrainConfig, group=None,
+                        shard=None):
     """One SGD step in place on `state`; returns (state, metrics).
 
     With a process `group` (`parallel.mesh`), `batch` is this rank's whole
     scans (`shard_voxel_batch`) and the step is the one-process step on
     every rank's scans: plans at the rank's share of the capacities,
     batch-norm statistics and the CE mean over all ranks' rows, gradients
-    summed over the ranks, the metrics global (the plan overflow summed)."""
+    summed over the ranks, the metrics global (the plan overflow summed).
+
+    `shard`: the seam of the voxel-sharded step (`parallel.sp_step`). Then
+    `batch` is the whole batch of the rank's ring at cfg's capacities, and
+    shard(plan) gives the rank's sharded plan, its level-0 rows and the
+    weight of the plan's overflow in the summed count (one plan a ring);
+    the metrics gain the windows' dropped entries, `sp_overflow`."""
     model = state.model
     model.train()
-    plan, feats0, _, mapped0 = plan_and_gather(batch, rank_caps(cfg.voxel_caps, group))
+    caps = cfg.voxel_caps if shard else rank_caps(cfg.voxel_caps, group)
+    plan, feats0, _, mapped0 = plan_and_gather(batch, caps)
     # the unknown slot has no logit in Stage 1 -> ignore those targets
     targets = torch.where(mapped0 == cfg.unknown_label, -1, mapped0)
+    run_plan, rows, weight = shard(plan) if shard else (plan, slice(None), None)
     lr = make_lr_schedule(cfg)(state.step)
     for pg in state.optimizer.param_groups:
         pg["lr"] = lr
     with batch_norm_group(group):
-        out = model(plan, feats0)
-        loss = cross_entropy(out["logits"], targets, plan.levels[0].valid, group=group)
+        out = model(run_plan, feats0[rows])
+        loss = cross_entropy(out["logits"], targets[rows], run_plan.levels[0].valid,
+                             group=group)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
     all_reduce_grads(model.parameters(), group)
     state.optimizer.step()
     state.step += 1
-    return state, {"loss": all_reduce(loss.detach(), group),
-                   "plan_overflow": all_reduce(plan_capacity_overflow(plan), group)}
+    plan_ovf = plan_capacity_overflow(plan)
+    metrics = {"loss": all_reduce(loss.detach(), group)}
+    if shard:
+        metrics["sp_overflow"] = all_reduce(out["sp_overflow"], group)
+        plan_ovf = plan_ovf * weight
+    metrics["plan_overflow"] = all_reduce(plan_ovf, group)
+    return state, metrics
 
 
 @torch.no_grad()

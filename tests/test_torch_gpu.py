@@ -55,10 +55,10 @@ def _close(got, ref):
 
 def _for_each(cases, check) -> None:
     """`check(*case)` for every case; raises once all have run, naming every
-    case that failed. (The card-only case lists run as loops inside one test
-    per kernel family: parametrized, they would add ~90 items that skip on the
-    CPU, and the CPU suite's collected count decides which tests share a
-    worker there; ROADMAP, "Test budget".)"""
+    case that failed. (The card-only checks run as loops inside two tests,
+    the kernel families and the paths: as items of their own they would add
+    items that skip on the CPU, and the CPU suite's collected count decides
+    which tests share a worker there; ROADMAP, "Test budget".)"""
     failed = []
     for case in cases:
         try:
@@ -556,7 +556,7 @@ def _onehot_conv_refuses_what_the_kernel_does_not_serve(plan):
                        torch.zeros(65, 16, 8, device=dev, dtype=torch.bfloat16))
 
 
-def test_plan_build_waits_for_no_host_sync(plan):
+def _plan_build_waits_for_no_host_sync(plan):
     """`build_unet_plan` at the Stage-1 and Stage-2 caps of `chip_smoke.py`
     with `torch.cuda.set_sync_debug_mode("error")`: no operation of the
     build makes the host wait for the card."""
@@ -579,7 +579,7 @@ def _finetune_sides(rng, cap, scans):
             "valid": np.arange(cap) < len(c)}
 
 
-def test_finetune_steps_match_the_cpu(plan):
+def _finetune_steps_match_the_cpu(plan):
     """Two Stage-1.5 steps (pairs mixing; the Extra step with the entropy
     terms and pseudo labels) on the card (kernels) and on the CPU (plain
     versions) from the same weights with the same draws, bf16 activations on
@@ -617,7 +617,7 @@ def _check_finetune_steps(extra: bool) -> None:
             assert abs(got[k] - r) <= REF_TOL * abs(r), (k, got[k], r)
 
 
-def test_f32_convs_round_to_bf16_and_sum_in_f32(plan):
+def _f32_convs_round_to_bf16_and_sum_in_f32(plan):
     """An f32 model's conv on the card: x, W and the cotangent rounded to
     bf16, K1 / K2 summing in f32, the result and dX in f32, dW in W's dtype;
     equal to the plain versions on the bf16-rounded inputs (a submanifold
@@ -655,7 +655,7 @@ def _check_f32_conv(plan, kind: str) -> None:
     assert not torch.equal(out, plain.gather_conv(x.detach(), nbr.contiguous(), w.detach()))
 
 
-def test_f16_convs_still_raise(plan):
+def _f16_convs_still_raise(plan):
     from gcdlss_tpu_torch.ops.fused_conv import subm_conv
 
     nbr, valid = plan.levels[1].nbr3, plan.levels[1].valid
@@ -665,7 +665,7 @@ def test_f16_convs_still_raise(plan):
         subm_conv(x, nbr, w)
 
 
-def test_discover_variants_match_the_cpu(monkeypatch):
+def _discover_variants_match_the_cpu(plan):
     """One Stage-2 step of each of the eight discovery configs (the seven
     recipes beside the default one, and the default one with the point-mode
     mixed plan; MinkUNet14, f32) on the card (kernels) and on the CPU (plain
@@ -683,17 +683,23 @@ def test_discover_variants_match_the_cpu(monkeypatch):
     Lloyd round (`kmeans_iters=0`: each candidate goes to its nearest
     initial row), as its rounds turn a last-place difference of a feature
     into another cluster; the smoke runs the full 15 on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from chip_smoke import REF_TOL
-    from gcdlss_tpu_torch.main import resolve_discover_overrides
     from gcdlss_tpu_torch.ops import fused_conv
-    from gcdlss_tpu_torch.train import discover as td
 
     def card_rounding(x, nbr, w, out_dtype=torch.float32):
         return plain.gather_conv(x.bfloat16().float(), nbr, w.bfloat16().float(), out_dtype)
 
-    monkeypatch.setattr(fused_conv, "gather_conv", card_rounding)
+    saved, fused_conv.gather_conv = fused_conv.gather_conv, card_rounding
+    try:
+        _check_discover_variants()
+    finally:
+        fused_conv.gather_conv = saved
+
+
+def _check_discover_variants() -> None:
+    from chip_smoke import REF_TOL
+    from gcdlss_tpu_torch.main import resolve_discover_overrides
+    from gcdlss_tpu_torch.train import discover as td
+
     caps = (4096, 4096, 2048, 1024, 512)
     rng = np.random.default_rng(11)
     sides = [_finetune_sides(rng, caps[0] // 2, 2), _finetune_sides(rng, caps[0] // 2, 2)]
@@ -752,37 +758,35 @@ def test_discover_variants_match_the_cpu(monkeypatch):
     assert not failures, failures
 
 
-def test_gather_gemm_family(plan):
-    """K1 and K2: the plan's and Cylinder3D's books, ragged shapes and a
-    misaligned x, all-absent and full books, the wrappers' refusals."""
-    _run_family(plan, [_gather_gemm_matches_plain, _gather_gemm_ragged_shapes_and_misaligned_x,
-                       _gather_gemm_all_absent_and_full_books, _wrappers_reject_wrong_inputs])
+def test_kernel_families(plan):
+    """K1/K2 (the plan's and Cylinder3D's books, ragged shapes and a
+    misaligned x, all-absent and full books, the wrappers' refusals), K3
+    (the plan's maps, the adversarial levels, its largest k1, refusals), K4
+    (against its plain version and K3, the adversarial levels, the plan it
+    builds, refusals) and P1-P4 (every mode of the conv-parts tool, the
+    one-hot conv's far entries and adversarial books, the window sums'
+    starts and adversarial cases, the product's and the gather sums' ragged
+    shapes, every refusal): every check runs, every failure is reported."""
+    _run_family(plan, [
+        _gather_gemm_matches_plain, _gather_gemm_ragged_shapes_and_misaligned_x,
+        _gather_gemm_all_absent_and_full_books, _wrappers_reject_wrong_inputs,
+        _cube_map_matches_join, _cube_map_matches_join_on_adversarial_levels,
+        _cube_map_serves_its_largest_k1, _cube_map_rejects_wrong_inputs,
+        _cube_candidates_matches_plain_and_k3, _cube_candidates_on_adversarial_levels,
+        _plan_kernel_1_builds_the_same_plan, _cube_candidates_rejects_wrong_inputs,
+        _conv_parts_match_plain_in_every_mode, _onehot_conv_far_entries,
+        _window_sum_unaligned_starts, _window_sum_adversarial,
+        _window_sum_refuses_what_the_kernel_does_not_serve, _conv_parts_reject_wrong_inputs,
+        _tile_gemm_ragged_shapes, _tile_gemm_refuses_what_the_kernel_does_not_serve,
+        _gather_sum_ragged, _onehot_conv_adversarial,
+        _onehot_conv_refuses_what_the_kernel_does_not_serve])
 
 
-def test_cube_map_family(plan):
-    """K3: the plan's maps, the adversarial levels, its largest k1, refusals."""
-    _run_family(plan, [_cube_map_matches_join, _cube_map_matches_join_on_adversarial_levels,
-                       _cube_map_serves_its_largest_k1, _cube_map_rejects_wrong_inputs])
-
-
-def test_cube_candidates_family(plan):
-    """K4: the plan's maps against its plain version and K3, the adversarial
-    levels, the plan it builds, refusals."""
-    _run_family(plan, [_cube_candidates_matches_plain_and_k3,
-                       _cube_candidates_on_adversarial_levels,
-                       _plan_kernel_1_builds_the_same_plan,
-                       _cube_candidates_rejects_wrong_inputs])
-
-
-def test_conv_parts_family(plan):
-    """P1-P4: every mode of the conv-parts tool at its shapes, the one-hot
-    conv's far entries, the window sums' starts and adversarial cases, the
-    product's ragged shapes, the gather sums' ragged cases, the one-hot
-    conv's adversarial books, and every refusal."""
-    _run_family(plan, [_conv_parts_match_plain_in_every_mode, _onehot_conv_far_entries,
-                       _window_sum_unaligned_starts, _window_sum_adversarial,
-                       _window_sum_refuses_what_the_kernel_does_not_serve,
-                       _conv_parts_reject_wrong_inputs, _tile_gemm_ragged_shapes,
-                       _tile_gemm_refuses_what_the_kernel_does_not_serve, _gather_sum_ragged,
-                       _onehot_conv_adversarial,
-                       _onehot_conv_refuses_what_the_kernel_does_not_serve])
+def test_card_paths(plan):
+    """The plan build with no host sync, two Stage-1.5 steps, the f32
+    convs' bf16 rounding, the f16 refusal and the eight Stage-2 configs,
+    each on the card against the CPU: every check runs, every failure is
+    reported."""
+    _run_family(plan, [_plan_build_waits_for_no_host_sync, _finetune_steps_match_the_cpu,
+                       _f32_convs_round_to_bf16_and_sum_in_f32, _f16_convs_still_raise,
+                       _discover_variants_match_the_cpu])

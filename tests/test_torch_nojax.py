@@ -61,7 +61,9 @@ def test_port_imports_no_jax():
             "gcdlss_tpu_torch.train.cylinder", "gcdlss_tpu_torch.models.heads",
             "gcdlss_tpu_torch.models.orca", "gcdlss_tpu_torch.models.wrappers",
             "gcdlss_tpu_torch.models.backbone_mm", "gcdlss_tpu_torch.losses_zoo",
-            "gcdlss_tpu_torch.parallel.mesh"} <= set(names)
+            "gcdlss_tpu_torch.parallel.mesh", "gcdlss_tpu_torch.parallel.voxel_shard",
+            "gcdlss_tpu_torch.parallel.sp_step", "gcdlss_tpu_torch.parallel.sp_discover"
+            } <= set(names)
     proc = _run("import importlib, sys\n"
                 f"for n in {names!r}: importlib.import_module(n)\n" + REPORT_FORBIDDEN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
