@@ -5,9 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-or, for one of the last three phases alone after the build and the rates
+or, for one of the last four phases alone after the build and the rates
 (no kernels line, no last line), `python3 chip_smoke.py --only library`,
-`--only dp` or `--only sp`.
+`--only dp`, `--only dp_families` or `--only sp`.
 
 Phases, each of which raises on failure:
 
@@ -141,7 +141,21 @@ Phases, each of which raises on failure:
      bits, on a plain f32 route counts equal and states within the CPU
      test's tolerances, on the kernels (bf16) losses, counts and states
      within DP_BF16_TOL;
- 13. voxel sharding (`sp_phase`): (a) two processes on the card over gloo
+ 13. data parallelism of every other step family (`dp_families_phase`):
+     two processes on the card over gloo with CUDA tensors, half of every
+     side's scans each, each case of DPF_CASES (the Stage-2 variants and
+     Cylinder3D, Stage 1.5 plain, pairs-mode and with the cluster miner,
+     the single-model step, SwaV, the Cylinder3D trainer) at the `bench.py`
+     shapes, two steps on the kernels (the second at the full rate) and one
+     full-rate step on a plain f32 route, against the one-process step on
+     all scans and its control (the same with inputs and parameters moved
+     by 1e-7): the ranks the same bits, overflow 0, on the plain route
+     counts, the queue's counts and the miner's rows equal and losses
+     within the CPU tests' tolerances, on the kernels within DPF_BF16_TOL
+     with K1/K2/K3 launched, the states within the route's tolerance or
+     DPF_CONTROL times the control's distance; step ms a rank and one
+     process, peak memory;
+ 14. voxel sharding (`sp_phase`): (a) two processes on the card over gloo
      with CUDA tensors, each holding the whole batch and half of every
      level's rows (`parallel.sp_step`, `parallel.sp_discover`: halo
      exchange, K1 forward and K2 backward over window books, K3 for the
@@ -2272,6 +2286,10 @@ def cylinder_card_vs_cpu(device, card: str) -> None:
             fused_conv.gather_conv = orig
         outs[dev.type] = {**{k: v.cpu() for k, v in out.items()},
                           **{k: v.cpu()[None] for k, v in parts.items()}}
+    # the levels' voxel counts are integers: equal on both
+    counts = {k: o.pop("cyl_counts") for k, o in outs.items()}
+    if not torch.equal(counts["cuda"], counts["cpu"]):
+        raise AssertionError(f"cylinder card vs CPU: level counts {counts}")
     rel = {k: float(torch.linalg.vector_norm(outs["cuda"][k] - v) / torch.linalg.vector_norm(v))
            for k, v in outs["cpu"].items()}
     log(f"cylinder card vs CPU (Cylinder3DRC f32, {len(q)} voxels; {card}): relative "
@@ -2988,6 +3006,520 @@ def dp_phase(device, card: str) -> dict:
     return launches
 
 
+# ---- data parallelism of the other step families (dp_families_phase)
+
+# Steps a route runs. The kernels run a first step at the warm-up rate
+# `min_lr` and a second at the full rate `lr` (1e-2), the plain f32 route one
+# step at the full rate (`dpf_config`'s schedule).
+DPF_STEPS = {"kernels": 2, "plain_f32": 1}
+# (name, family, config overrides); each case runs on the kernels (bf16;
+# Cylinder3D f32 on them) and on a plain f32 route
+DPF_CASES = (
+    ("feature_hybrid", "discover", dict(mix_mode="feature", threshold_mode="hybrid",
+                                        threshold_offset=0.1)),
+    ("point_fixed_prob", "discover", dict(mix_plan_mode="point", threshold_mode="fixed_prob")),
+    ("sinkhorn_oracle", "discover", dict(assigner="sinkhorn", threshold_mode="oracle_logit")),
+    ("lion_msp", "discover", dict(use_lion=True, threshold_mode="msp")),
+    ("cylinder3d", "discover", dict(arch="Cylinder3D", feat_dim=128)),
+    ("finetune", "finetune", {}),
+    ("finetune_pairs", "finetune", dict(mix_mode="pairs")),
+    ("cluster", "finetune_extra", dict(extra_mode="cluster")),
+    ("nops", "nops", dict(use_mix_features=True, mix_centroid=True, unsup_mix_coeff=0.1,
+                          entropy_minimize=True)),
+    ("swav", "swav", {}),
+    ("cylinder", "cylinder", {}),
+)
+DPF_ROUTES = tuple(DPF_STEPS)
+DPF_COUNTS = ("n_cand", "n_rel", "has_novel", "cand_overflow", "plan_overflow", "n_match")
+# kernels route (`dp_families_phase`): relative, of the total loss, of each
+# term (of at least 1e-2 of the step's loss), of n_cand, of n_rel, n_match,
+# the queue's and the cluster mask's counts, of the state. ~2x the first
+# run's worst (total loss 1.6e-2, SwaV's, whose swap term is most of it;
+# a term 0.27, LiON's NCC CE; n_cand 1.2e-3; n_rel 0.22; NVIDIA H100 80GB
+# HBM3, 700 W): bf16 rounding in another summation order moves candidates
+# across the threshold and k-means boundaries, so the mined counts and
+# the terms built on them move by whole clusters. The plain f32 route
+# holds those exactly; a missing reduction moves the supervised terms,
+# n_cand or the state by tens of percent
+DPF_BF16_TOL = {"loss": 5e-2, "terms": 0.6, "n_cand": 5e-3, "counts": 0.5, "state": 1e-2}
+# The control: at the full rate a step moves some batch-norm biases by far
+# more than the rounding of its sums (their gradients are sums that nearly
+# cancel), so each case also runs the one-process step with every input
+# feature and every parameter moved by 1e-7 relative (`dpf_run(control=)`),
+# and a state tensor of the group off the one-process step by more than
+# the route's tolerance (1e-4 plain, DPF_BF16_TOL["state"] on the kernels,
+# relative to its largest magnitude) passes only within DPF_CONTROL times
+# the control's distance from the one-process step: on the same tensor on
+# the plain route, the largest over the state on the kernels
+# (`_dpf_state_check`)
+DPF_CONTROL = 8.0
+
+
+def dpf_config(name: str, route: str):
+    """(family, config) of a DPF_CASES case: the `bench.py` shapes (Stage 2,
+    the Extra step and the single-model family 2 + 2 scans at cap0
+    276,480, the plain Stage 1.5 2 scans at 138,240, the Cylinder3D trainer
+    `CylinderConfig`'s 2 scans), one step an epoch with one warm-up epoch on
+    the kernels (the first step at `min_lr`, the second at `lr`) and none
+    on the plain route (its one step at `lr`)."""
+    import dataclasses
+
+    from gcdlss_tpu_torch.train.common import default_caps
+    from gcdlss_tpu_torch.train.cylinder import CylinderConfig
+    from gcdlss_tpu_torch.train.finetune import FineTuneConfig
+    from gcdlss_tpu_torch.train.nops import NopsConfig
+
+    family, over = next((f, o) for n, f, o in DPF_CASES if n == name)
+    dtype = "bfloat16" if route == "kernels" else "float32"
+    label = dict(num_labeled_classes=17, num_classes=19, unknown_label=17)
+    sched = dict(steps_per_epoch=1, epochs=3, warmup_epochs=DPF_STEPS[route] - 1)
+    if family == "discover":
+        over = dict(over)
+        if over.get("mix_plan_mode") == "point":
+            over["mix_voxel_caps"] = default_caps(POINT_MIX_CAP0)
+        cfg = dataclasses.replace(dp_config("stage2", route), **over)
+    elif family == "finetune":
+        cfg = FineTuneConfig(**label, voxel_caps=default_caps(CAP0), dtype=dtype, **over)
+    elif family == "finetune_extra":
+        cfg = FineTuneConfig(**label, voxel_caps=default_caps(S2_CAP0), sup_voxel_cap=CAP0,
+                             num_sup_scans=BATCH, dtype=dtype, **over)
+    elif family in ("nops", "swav"):
+        cfg = NopsConfig(**label, num_unlabeled_classes=2, voxel_caps=default_caps(S2_CAP0),
+                         sup_voxel_cap=CAP0, num_sup_scans=BATCH, dtype=dtype, cand_cap=4096,
+                         queue_slots=20, kmeans_iters=15, **over)
+    else:
+        cfg = CylinderConfig(**label)
+    return family, dataclasses.replace(cfg, **sched)
+
+
+def dpf_inputs(root: Path) -> dict:
+    """The families' batches at the `bench.py` shapes, on the host: 2 + 2
+    scans of 80k synthetic points (`write_kitti_tree`) as the loaders hand
+    them over (voxel and point batches, the labeled side at CAP0 rows, the
+    unlabeled at S2_CAP0 - CAP0), SwaV's second view of both (every voxel
+    one step along x, fresh features) and the Cylinder3D trainer's 2 scans
+    of points with 3 features."""
+    import torch
+
+    from gcdlss_tpu_torch.data import SemanticKITTIDataset, collate_batch, synth_scan_points
+    from gcdlss_tpu_torch.train.common import point_batch_to_device, voxel_batch_to_device
+
+    unknown, mapping, _, unk = label_space()
+    write_kitti_tree(root, np.random.default_rng(8), 2 * BATCH, 0)
+    common = dict(voxel_size=VOXEL_SIZE, downsampling=POINTS_PER_SCAN, augment=True,
+                  label_mapping=mapping, unknown_labels=unknown, split_indices=np.arange(BATCH))
+    lab = SemanticKITTIDataset(str(root), "train", labeled=True, resize_aug=True, seed=0,
+                               **common)
+    unlab = SemanticKITTIDataset(str(root), "train", labeled=False, seed=1, **common)
+    out = {}
+    for side, ds, cap in (("sup", lab, CAP0), ("unsup", unlab, S2_CAP0 - CAP0)):
+        b = collate_batch([ds[i] for i in range(BATCH)], cap, POINTS_PER_SCAN)
+        out[side] = voxel_batch_to_device(b["voxel"], "cpu")
+        out[side + "_pb"] = point_batch_to_device(b["points"], "cpu")
+    g = torch.Generator().manual_seed(8)
+    for side in ("sup", "unsup"):
+        vb = out[side]
+        out[side + "2"] = dict(vb, coords=vb["coords"] + torch.tensor([0, 1, 0, 0],
+                                                                        dtype=torch.int32),
+                               feats=torch.rand(vb["feats"].shape, generator=g))
+    rng = np.random.default_rng(9)
+    labels = rng.integers(0, 19, (BATCH, POINTS_PER_SCAN)).astype(np.int32)
+    out["cyl"] = {
+        "xyz": torch.as_tensor(np.stack([synth_scan_points(rng, POINTS_PER_SCAN)
+                                         for _ in range(BATCH)])),
+        "feats": torch.as_tensor(rng.uniform(0, 1, (BATCH, POINTS_PER_SCAN, 3))
+                                 .astype(np.float32)),
+        "mapped_labels": torch.as_tensor(np.minimum(labels, unk)),
+        "valid": torch.ones((BATCH, POINTS_PER_SCAN), dtype=torch.bool)}
+    return out
+
+
+def _moved(t, g):
+    """`t` with every entry moved by 1e-7 relative, up or down as `g` (a CPU
+    generator) draws: as far as the rounding of f32 sums moves a value."""
+    import torch
+
+    sign = (torch.randint(0, 2, t.shape, generator=g) * 2.0 - 1.0).to(t.device)
+    return (t.double() * (1 + 1e-7 * sign.double())).to(t.dtype)
+
+
+def dpf_moved(inputs: dict) -> dict:
+    """The control's inputs: `inputs` with every feature `_moved`."""
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    return {k: dict(v, feats=_moved(v["feats"], g)) if "feats" in v else v
+            for k, v in inputs.items()}
+
+
+class MinerLog:
+    """Inside, the cluster miner's calls record the packed keys of the rows
+    the mask marks (the scan index global), on the host."""
+
+    def __enter__(self):
+        from gcdlss_tpu_torch.train import finetune
+
+        self.mod, self.orig, self.marked = finetune, finetune._cluster_unknown_mask, []
+
+        def wrapped(coords0, unsup_mask, feats0, probs_known, group=None):
+            mask = self.orig(coords0, unsup_mask, feats0, probs_known, group)
+            self.marked.append(np.sort(voxel_keys(coords0, mask & unsup_mask)))
+            return mask
+
+        finetune._cluster_unknown_mask = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._cluster_unknown_mask = self.orig
+
+
+def dpf_run(device, name: str, route: str, inputs: dict, group=None, rank: int = 0,
+            world: int = 1, control: bool = False) -> dict:
+    """DPF_STEPS[route] steps of one case from the state of seed 0: the
+    one-process step on all scans (`group` None) or this rank's share of
+    the group's (its scans: `shard_voxel_batch` / `shard_point_batch` /
+    `shard_scans`; the state broadcast from rank 0). `control`: the
+    one-process step with every input feature and every parameter moved by
+    1e-7 relative (`_moved`; student and teacher alike). Returns the metrics of
+    each step, the state (on the CPU), each step's device ms, the peak
+    memory over the steps and that peak less what the process held before
+    them, the kernels' launches over the steps, the keys the cluster miner
+    marked and the run's wall seconds."""
+    import torch
+
+    from gcdlss_tpu_torch.parallel import mesh
+    from gcdlss_tpu_torch.train import cylinder as tcyl
+    from gcdlss_tpu_torch.train import discover as td
+    from gcdlss_tpu_torch.train import finetune as tft
+    from gcdlss_tpu_torch.train import nops as tn
+
+    t0 = time.perf_counter()
+    family, cfg = dpf_config(name, route)
+    if control:
+        inputs = dpf_moved(inputs)
+    d = {k: {n: t.to(device) for n, t in v.items()} for k, v in inputs.items()}
+    if group is not None:
+        for side in ("sup", "unsup", "sup2", "unsup2"):
+            vb = d[side]
+            d[side] = mesh.shard_voxel_batch(vb, BATCH, rank, world)
+            if side + "_pb" in d:
+                d[side + "_pb"] = mesh.shard_point_batch(d[side + "_pb"], vb, BATCH, rank, world)
+        d["cyl"] = mesh.shard_scans(d["cyl"], BATCH, rank, world)
+    if family == "discover":
+        state = td.create_discover_state(0, cfg, device=device)
+        models, extra = {"student": state.student, "teacher": state.teacher}, (
+            state.tau, state.generator, state.queue)
+        step = lambda: td.discover_train_step(state, d["sup"], d["unsup"], cfg,
+                                              sup_pb=d["sup_pb"], unsup_pb=d["unsup_pb"],
+                                              group=group)
+    elif family.startswith("finetune"):
+        state = tft.create_finetune_state(0, cfg, device=device)
+        models, extra = {"model": state.model}, ()
+        step = (lambda: tft.finetune_train_step(state, d["sup"], cfg, group=group)
+                ) if family == "finetune" else (
+            lambda: tft.finetune_extra_train_step(state, d["sup"], d["unsup"], cfg,
+                                                  group=group))
+    elif family in ("nops", "swav"):
+        state = tn.create_nops_state(0, cfg, device=device)
+        models, extra = {"model": state.model}, (state.generator, state.queue)
+        step = (lambda: tn.nops_train_step(state, d["sup"], d["unsup"], cfg, group=group)
+                ) if family == "nops" else (
+            lambda: tn.swav_train_step(state, d["sup"], d["unsup"], d["sup2"], d["unsup2"], cfg,
+                                       group=group))
+    else:
+        state = tcyl.create_cylinder_state(0, cfg, device=device)
+        models, extra = {"model": state.model}, ()
+        step = lambda: tcyl.cylinder_train_step(state, d["cyl"], cfg, group=group)
+    if group is not None:
+        mesh.replicate(*models.values(), *extra, group=group)
+    if control:
+        with torch.no_grad():
+            for model in models.values():
+                g = torch.Generator().manual_seed(13)
+                for p in model.parameters():
+                    p.copy_(_moved(p, g))
+    kernels = kernel_counters()
+    out = {"metrics": [], "ms": []}
+    with (plain_convs(round_operands=False) if route == "plain_f32"
+          else contextlib.nullcontext()), MinerLog() as miner:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for fn in kernels.values():
+            fn.launches = 0
+        for _ in range(DPF_STEPS[route]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step()
+            end.record()
+            torch.cuda.synchronize()
+            out["ms"].append(start.elapsed_time(end))
+            out["metrics"].append({k: v.detach().cpu() for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    out.update(peak_gib=peak / 2 ** 30, step_gib=(peak - held) / 2 ** 30, miner=miner.marked,
+               launches={k: fn.launches for k, fn in kernels.items()})
+    for who, model in models.items():
+        out[who] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if hasattr(state, "queue"):
+        out["queue"] = tuple(a.detach().cpu() for a in state.queue)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _digest(run: dict) -> dict:
+    """A run's state and queue as one hash of their bits, beside its metrics,
+    the miner's keys, its times, peaks and launches (what the ranks'
+    comparison and log read)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for who in ("model", "student", "teacher"):
+        for k, v in run.get(who, {}).items():
+            h.update(k.encode())
+            h.update(v.contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    for v in run.get("queue", ()):
+        h.update(v.contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return {"state_sha1": h.hexdigest(),
+            **{k: run[k] for k in ("metrics", "miner", "ms", "peak_gib", "step_gib", "wall_s",
+                                   "launches")}}
+
+
+def dpf_worker(rank: int, world: int, tmp: str, start, kernels_done) -> None:
+    """A rank of `dp_families_phase`: gloo over CUDA tensors, both ranks on
+    card 0, a `FileStore` in `tmp`; once the event `start` is set, every
+    case of DPF_CASES on the kernels, then (rank 0 setting the event
+    `kernels_done`) on the plain f32 route, on the inputs in
+    `tmp/inputs.pt`. Saves to `tmp/dpf{rank}.pt` rank 0's whole runs and
+    every rank's `_digest` of each."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    inputs = torch.load(f"{tmp}/inputs.pt")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_f", rank=rank,
+                            world_size=world)
+    try:
+        start.wait()
+        res = {}
+        for route in DPF_ROUTES:
+            for name, _, _ in DPF_CASES:
+                run = dpf_run(device, name, route, inputs, dist.group.WORLD, rank, world)
+                res[(name, route)] = {"digest": _digest(run), **(run if rank == 0 else {})}
+                del run
+                torch.cuda.empty_cache()
+            if route == "kernels" and rank == 0:
+                kernels_done.set()
+        torch.save(res, f"{tmp}/dpf{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dpf_state_check(grp: dict, one: dict, ctl: dict, tol: float, each: bool) -> dict:
+    """Each floating tensor of the state, relative to its largest magnitude
+    in the one-process run (at least 1e-3): the group's distance `g` and the
+    control's `c` from the one-process run. A tensor passes where g <= tol,
+    or where g <= DPF_CONTROL * c: the control's distance on the same
+    tensor if `each` (the plain f32 route, where the drift is the rounding
+    of sums), else its largest over the state (the kernels, where bf16
+    rounding moves whole candidates and with them the novel heads, by
+    draws that differ from tensor to tensor). Returns the worst g and c
+    with their tensors, the largest g / c over the tensors beyond `tol`,
+    their count and the control's, and the tensors that fail."""
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-3)
+    dist = {}
+    for who in ("model", "student", "teacher"):
+        for k, v in one.get(who, {}).items():
+            if v.is_floating_point():
+                dist[f"{who} {k}"] = (rel(grp[who][k], v), rel(ctl[who][k], v))
+    worst = lambda i: max(((d[i], k) for k, d in dist.items()), default=(0.0, None))
+    out = {"g": worst(0), "c": worst(1), "n_g": sum(g > tol for g, _ in dist.values()),
+           "n_c": sum(c > tol for _, c in dist.values())}
+    spread = {k: c if each else out["c"][0] for k, (_, c) in dist.items()}
+    beyond = {k: g / max(spread[k], 1e-30) for k, (g, _) in dist.items() if g > tol}
+    out["ratio"] = max(((r, k) for k, r in beyond.items()), default=(0.0, None))
+    out["fail"] = [k for k, r in beyond.items() if r > DPF_CONTROL]
+    return out
+
+
+def _dpf_check(name: str, route: str, one: dict, ctl: dict, grp: dict, digests: list,
+               card: str) -> list:
+    """Hold a case's ranks to each other (the same bits) and rank 0 to the
+    one-process step over every step, its state with the control `ctl`;
+    log its line. Returns what is off."""
+    a_step = lambda r: {k: v / DPF_STEPS[route] for k, v in r["launches"].items()}
+    same = len({d["state_sha1"] for d in digests}) == 1
+    for a, b in zip(digests[0]["metrics"], digests[1]["metrics"]):
+        same = same and all(torch_equal(v, b[k]) for k, v in a.items())
+    bad = [] if same else ["ranks differ"]
+    tol = 1e-4 if route == "plain_f32" else DPF_BF16_TOL["state"]
+    st = _dpf_state_check(grp, one, ctl, tol, route == "plain_f32")
+    counts, losses = {}, {}  # "<metric><step>" -> (one process, group)
+    for s, (m1, mg) in enumerate(zip(one["metrics"], grp["metrics"])):
+        for k, v in m1.items():
+            if k in DPF_COUNTS:
+                counts[f"{k}{s}"] = (int(v), int(mg[k]))
+            else:
+                losses[f"{k}{s}"] = (float(v), float(mg[k]))
+    loss_rel = {k: abs(b - a) / max(abs(a), 1e-12) if a != b else 0.0
+                for k, (a, b) in losses.items()}
+    finite = all(np.isfinite(a) and np.isfinite(b) for a, b in losses.values())
+    qd, qc = 0.0, True
+    if "queue" in one:
+        qd = float((grp["queue"][0] - one["queue"][0]).abs().max()) / max(
+            float(one["queue"][0].abs().max()), 1e-3)
+        qc = torch_equal(grp["queue"][1], one["queue"][1]) and torch_equal(
+            grp["queue"][2], one["queue"][2])
+    grp_marked = [np.union1d(b, c) for b, c in zip(digests[0]["miner"], digests[1]["miner"])]
+    mined = [(len(a), len(b)) for a, b in zip(one["miner"], grp_marked)]
+    mine_same = all(np.array_equal(a, b) for a, b in zip(one["miner"], grp_marked))
+    log(f"dp_families {name} {route}: counts (one, group) {counts}; losses relative "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in loss_rel.items()})}; state worst "
+        f"{st['g'][0]:.3e} at {st['g'][1]}, control {st['c'][0]:.3e} at {st['c'][1]}; "
+        f"beyond {tol:g}: {st['n_g']} tensors (control {st['n_c']}), group / control at most "
+        f"{st['ratio'][0]:.3f} ({st['ratio'][1]})"
+        + (f"; queue feats {qd:.3e}, counts and head {'equal' if qc else 'differ'} (counts "
+           f"{int(one['queue'][1].sum())} / {int(grp['queue'][1].sum())})"
+           if "queue" in one else "")
+        + (f"; miner marked (one, group) {mined}, {'the same rows' if mine_same else 'differ'}"
+           if one["miner"] else "")
+        + f" | steps {' / '.join(', '.join(f'{t:.1f}' for t in d['ms']) for d in digests)} ms "
+        f"a rank, {', '.join(f'{t:.1f}' for t in one['ms'])} ms one process; peak "
+        f"{' / '.join(f'{d['peak_gib']:.3f}' for d in digests)} GiB a rank (the steps' own "
+        f"{' / '.join(f'{d['step_gib']:.3f}' for d in digests)}), one process "
+        f"{one['peak_gib']:.3f} ({one['step_gib']:.3f}); launches a step a rank "
+        f"{a_step(grp)}, one process {a_step(one)}; wall s a rank "
+        f"{' / '.join(f'{d['wall_s']:.1f}' for d in digests)}, one process "
+        f"{one['wall_s']:.1f}, control {ctl['wall_s']:.1f} ({card})")
+    if not finite:
+        bad.append("a non-finite loss")
+    if any(a or b for k, (a, b) in counts.items() if k.startswith("plan_overflow")):
+        bad.append("plan overflow")
+    bad += [f"state {where}" for where in st["fail"]]
+    if route == "plain_f32":
+        bad += [k for k, (a, b) in counts.items() if a != b]
+        bad += [k for k, (a, b) in losses.items() if not abs(b - a) <= 1e-5 * abs(a) + 1e-6]
+        if "queue" in one and not (qd <= 1e-4 and qc):
+            bad.append("queue")
+        if not mine_same:
+            bad.append("miner mask")
+    else:
+        near = lambda a, b, tol, floor=0.0: abs(b - a) <= tol * max(abs(a), floor)
+        total = {k[-1]: abs(a) for k, (a, _) in losses.items() if k[:-1] == "loss"}
+        bad += [k for k, (a, b) in losses.items() if not (
+            near(a, b, DPF_BF16_TOL["loss"]) if k[:-1] == "loss"
+            else near(a, b, DPF_BF16_TOL["terms"], 1e-2 * total.get(k[-1], 0.0)))]
+        for k, (a, b) in counts.items():
+            tol = DPF_BF16_TOL["n_cand" if k.startswith("n_cand") else "counts"]
+            if not near(a, b, tol):
+                bad.append(k)
+        if "queue" in one and not (near(float(one["queue"][1].sum()),
+                                        float(grp["queue"][1].sum()), DPF_BF16_TOL["counts"])
+                                   and torch_equal(grp["queue"][2], one["queue"][2])):
+            bad.append("queue counts")
+        if not all(near(a, b, DPF_BF16_TOL["counts"]) for a, b in mined):
+            bad.append("miner mask")
+        if not all(grp["launches"][k] > 0 for k in ("K1", "K2", "K3")):
+            bad.append(f"a kernel not launched {grp['launches']}")
+    return [f"{name} {route}: {b}" for b in bad]
+
+
+def dp_families_phase(device, card: str) -> dict:
+    """Data parallelism of every step family beside Stage 1 and the default
+    Stage 2 on the card: two processes on the one card over gloo with CUDA
+    tensors (`dpf_worker`), each holding half of every side's scans, run
+    each case of DPF_CASES (the Stage-2 variants and Stage 2 on Cylinder3D,
+    the plain, pairs-mode and cluster-mining Stage-1.5 steps, the
+    single-model step and SwaV, the Cylinder3D trainer) at the `bench.py`
+    shapes, two steps on the kernels (the second at the full rate) and one
+    full-rate step on a plain f32 route, against the one-process step on
+    all scans in this process and its control (the same with its inputs
+    and parameters moved by 1e-7): every rank ends with the same bits; plan
+    overflow 0; on the plain f32 route counts, the queue's counts and head
+    and the cluster miner's marked rows equal, losses and the queue within
+    `tests/test_torch_dp.py`'s tolerances; on the kernels within
+    DPF_BF16_TOL, every kernel of the path launched; on both the state
+    within the route's tolerance or DPF_CONTROL times the control's
+    distance. Logs each case's step ms a rank and in one process, the peak
+    memory, the launches a step and the wall seconds of each run: those of
+    the kernels each with the card to itself, those of the plain route and
+    the controls run at once with others. Every case runs before any miss
+    raises. Returns the kernels' launches in the group runs on the kernels
+    (both ranks, every step)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        inputs = dpf_inputs(Path(tmp) / "kitti")
+        torch.save(inputs, f"{tmp}/inputs.pt")
+        t_in = time.perf_counter()
+        single, control = {}, {}
+        run = lambda key, **kw: dpf_run(device, *key, inputs, **kw)
+        kernels = [(name, "kernels") for name, _, _ in DPF_CASES]
+        plain = [(name, "plain_f32") for name, _, _ in DPF_CASES]
+        # the workers start up meanwhile and wait for `start`
+        start, kernels_done = (mp.get_context("spawn").Event() for _ in range(2))
+        workers = mp.start_processes(dpf_worker, args=(DP_WORLD, tmp, start, kernels_done),
+                                     nprocs=DP_WORLD, start_method="spawn", join=False)
+        try:
+            for key in kernels:  # alone on the card: the one-process step's times
+                single[key] = run(key)
+                torch.cuda.empty_cache()
+            start.set()
+            t_one = time.perf_counter()
+            # the group's kernel route runs alone on the card (its times are
+            # its own); the controls and the plain route's one-process runs
+            # then run here beside the group's plain route, whose times are
+            # not its own
+            while not kernels_done.wait(5):
+                if workers.join(0):  # raises if a worker failed
+                    break
+            t_k = time.perf_counter()
+            for key in kernels + plain:
+                control[key] = run(key, control=True)
+                if key in plain:
+                    single[key] = run(key)
+                torch.cuda.empty_cache()
+            t_rest = time.perf_counter()
+            while not workers.join():
+                pass
+        finally:  # a failure here leaves no worker behind
+            for proc in workers.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        t_grp = time.perf_counter()
+        # written by the workers above; the miner's keys are numpy arrays
+        ranks = [torch.load(f"{tmp}/dpf{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    log(f"dp_families: wall s: inputs {t_in - t0:.1f}, one process on the kernels "
+        f"{t_one - t_in:.1f}, the group on the kernels {t_k - t_one:.1f}, beside its plain "
+        f"route the controls and one process on the plain route {t_rest - t_k:.1f}, the "
+        f"group's end {t_grp - t_rest:.1f}, loading its results "
+        f"{time.perf_counter() - t_grp:.1f}")
+    bad = []
+    for name, _, _ in DPF_CASES:
+        for route in DPF_ROUTES:
+            res = [r[(name, route)] for r in ranks]
+            bad += _dpf_check(name, route, single[(name, route)], control[(name, route)],
+                              res[0], [r["digest"] for r in res], card)
+    # every launch of the group runs on the kernels, both ranks, all steps
+    launches = {k: sum(r[(name, "kernels")]["digest"]["launches"][k] for r in ranks
+                       for name, _, _ in DPF_CASES) for k in kernel_counters()}
+    log(f"dp_families: launches of the group runs on the kernels {launches}")
+    if bad:
+        raise AssertionError(f"dp_families: {bad}")
+    return launches
+
+
 # ---- voxel sharding over a process group (sp_phase)
 
 SP_WORLD = 2
@@ -3360,7 +3892,8 @@ def sp_phase(device, card: str):
     return ranks[0]["rows"], launches
 
 
-ALONE = {"library": library_phase, "dp": dp_phase, "sp": sp_phase}  # `--only NAME`
+ALONE = {"library": library_phase, "dp": dp_phase, "dp_families": dp_families_phase,
+         "sp": sp_phase}  # `--only NAME`
 
 
 def main() -> int:
@@ -3425,6 +3958,7 @@ def main() -> int:
     launches_dq = phase("discovery quality", discovery_phase, device, card)
     lib_rows, launches_lib = phase("library", library_phase, device, card)
     launches_dp = phase("dp", dp_phase, device, card)
+    launches_dpf = phase("dp families", dp_families_phase, device, card)
     sp_rows, launches_sp = phase("sp", sp_phase, device, card)
     log(f"phases (wall s): {json.dumps({k: round(v, 1) for k, v in wall.items()})}; "
         f"remat peaks (GiB) {peaks_remat}")
@@ -3436,8 +3970,9 @@ def main() -> int:
     # run, `launches_cylinder` the Cylinder3D Stage-2 and trainer paths
     # together, `launches_library` the seven library models' steps together,
     # `launches_dp` the data-parallel group runs: (a)'s and both ranks' of
-    # (b) on the kernels, `launches_sp` the voxel-sharded runs' ranks on the
-    # kernels: (a)'s two and (b)'s four), P1-P4 in
+    # (b) on the kernels, `launches_dp_families` the other families' group
+    # runs on the kernels, both ranks, `launches_sp` the voxel-sharded runs'
+    # ranks on the kernels: (a)'s two and (b)'s four), P1-P4 in
     # the tool's main run (their only path; K1's launches there are
     # `launches_parts`)
     rows += cyl_rows + lib_rows + sp_rows
@@ -3458,12 +3993,13 @@ def main() -> int:
         r["launches_cli"] = launches_cli["total"][r["name"][:2]]
         r["launches_library"] = launches_lib["total"].get(r["name"][:2], 0)
         r["launches_dp"] = launches_dp.get(r["name"][:2], 0)
+        r["launches_dp_families"] = launches_dpf.get(r["name"][:2], 0)
         r["launches_sp"] = launches_sp.get(r["name"][:2], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("launches_stage1", "launches_stage15", "launches_variants", "launches_nops",
              "launches_cli", "launches_quality", "launches_cylinder", "launches_library",
-             "launches_dp", "launches_sp", "launches_parts",
+             "launches_dp", "launches_dp_families", "launches_sp", "launches_parts",
              "bound_measured_ms",
              "bound_dense_ms", "fill",
              "far_entries",

@@ -83,11 +83,13 @@ def adaptive_threshold_loss(ncc_logits: torch.Tensor, labels: torch.Tensor,
 
 
 def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,
-                       valid: torch.Tensor | None = None) -> torch.Tensor:
+                       valid: torch.Tensor | None = None, group=None) -> torch.Tensor:
     """CE against soft target rows, f32: the mean over all rows, or over the
     valid ones."""
     nll = -(target_probs * torch.log_softmax(logits.float(), dim=-1)).sum(dim=-1)
     if valid is None:
+        if group is not None:
+            raise ValueError("a mean over every rank's rows needs `valid`")
         return nll.mean()
     m = valid.float()
-    return (nll * m).sum() / m.sum().clamp(min=1.0)
+    return (nll * m).sum() / all_reduce(m.sum(), group).clamp(min=1.0)

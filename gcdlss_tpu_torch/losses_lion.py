@@ -13,11 +13,20 @@ Gambler loss treats targets <= 0 as void, although class 0 is a real class
 of the label space (ROADMAP "Known behaviours"). Every term is computed in
 f32 whatever the logits' type: the -99999 column and the clamps would give
 inf or NaN in bf16.
+
+With a process `group` (`parallel.mesh`), `energy_loss` and `gambler_loss`
+(the Stage-2 step's two) give the rank's share of the loss over every
+rank's rows: the masked means are over the global counts, the sparsity
+term's square root is taken of the sum over the ranks (on rank 0, its
+gradient reaching every rank through `all_reduce_sum`), and the branches
+are decided on the global counts, so every rank takes the same one.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .parallel.mesh import all_reduce, all_reduce_sum, rank_of
 
 _M_IN = -12.0
 _M_OUT = -6.0
@@ -43,27 +52,35 @@ def smooth_reg(energy: torch.Tensor, nbr: torch.Tensor, valid: torch.Tensor,
     return lam * ((energy[:, None] - e_n).square() * ok).sum() / 3.0
 
 
-def sparsity_reg(values: torch.Tensor, mask: torch.Tensor, lam: float = 5e-4) -> torch.Tensor:
+def sparsity_reg(values: torch.Tensor, mask: torch.Tensor, lam: float = 5e-4,
+                 group=None) -> torch.Tensor:
     m = mask.to(values.dtype)
-    return lam * torch.sqrt(((values.square()) * m).sum().clamp(min=1e-12))
+    total = all_reduce_sum(((values.square()) * m).sum(), group)
+    reg = lam * torch.sqrt(total.clamp(min=1e-12))
+    # every rank holds the global term: rank 0's share is all of it
+    return reg if group is None else reg * (rank_of(group) == 0)
 
 
-def _masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, m: torch.Tensor, group=None) -> torch.Tensor:
     mm = m.to(torch.float32)
-    s = mm.sum()
+    s = all_reduce(mm.sum(), group)
     return torch.where(s > 0, (x * mm).sum() / s.clamp(min=1.0), 0.0)
 
 
-def energy_loss(logits, targets, valid, ood_ind: int = 5, nbr=None):
+def _any(m: torch.Tensor, group) -> torch.Tensor:
+    return all_reduce(m.sum(), group) > 0
+
+
+def energy_loss(logits, targets, valid, ood_ind: int = 5, nbr=None, group=None):
     """Squared-hinge energy margins: in-distribution rows below m_in, OOD
     rows above m_out. Returns (loss, energy)."""
     energy = energy_of(logits, ood_ind)
     is_out = (targets == ood_ind) & valid
     is_in = (targets != ood_ind) & (targets != 0) & (targets >= 0) & valid
-    l_in = _masked_mean(torch.relu(energy - _M_IN).square(), is_in)
-    l_out = _masked_mean(torch.relu(_M_OUT - energy).square(), is_out)
-    loss = torch.where(is_out.sum() > 0, 0.5 * (l_in + l_out) + sparsity_reg(energy, is_out),
-                       l_in)
+    l_in = _masked_mean(torch.relu(energy - _M_IN).square(), is_in, group)
+    l_out = _masked_mean(torch.relu(_M_OUT - energy).square(), is_out, group)
+    loss = torch.where(_any(is_out, group),
+                       0.5 * (l_in + l_out) + sparsity_reg(energy, is_out, group=group), l_in)
     if nbr is not None:
         loss = loss + smooth_reg(energy, nbr, valid)
     return loss, energy
@@ -93,7 +110,7 @@ def crude_dynamic_energy_loss(logits, targets, valid, details_targets, ood_ind: 
 
 
 def gambler_loss(logits, targets, valid, unknown_cls_idx: int, reward_default: float,
-                 ood_reg: float = 0.1, has_ood: bool = True) -> torch.Tensor:
+                 ood_reg: float = 0.1, has_ood: bool = True, group=None) -> torch.Tensor:
     """Reservation (Gambler) loss: the unknown column's probability is an
     abstention channel, scaled down by a squared energy reward
     (`loss_LiON.py:46-181`; the reference's 3D gaussian blur of the reward
@@ -112,8 +129,8 @@ def gambler_loss(logits, targets, valid, unknown_cls_idx: int, reward_default: f
     t = torch.where(is_ood | is_void, 0, targets)
     shifted = (t - (t > u).to(t.dtype)).clamp(0, true_pred.shape[1] - 1)
     g_in = true_pred.gather(1, shifted[:, None].long())[:, 0] + reservation
-    loss_in = _masked_mean(torch.log(g_in.clamp(min=1e-7)), ~is_ood & ~is_void)
+    loss_in = _masked_mean(torch.log(g_in.clamp(min=1e-7)), ~is_ood & ~is_void, group)
     if has_ood:
         boost = torch.log((true_pred + reservation[:, None]).clamp(min=1e-7))
-        return -(loss_in + ood_reg * _masked_mean(boost.mean(dim=-1), is_ood))
+        return -(loss_in + ood_reg * _masked_mean(boost.mean(dim=-1), is_ood, group))
     return -loss_in

@@ -113,6 +113,13 @@ def build_cyl_plan(coords: torch.Tensor, valid: torch.Tensor, caps: tuple,
     return CylPlan(tuple(levels), tuple(edges))
 
 
+def cyl_counts(vfe: dict, plan: CylPlan) -> torch.Tensor:
+    """The unique voxels of each cylinder level before its cap (level 0's:
+    the VFE's), to hold against the levels' caps: a data-parallel step sums
+    them over its ranks to see whether the union's plan would drop voxels."""
+    return torch.stack([vfe["count"], *(lv.count for lv in plan.levels[1:])])
+
+
 def cylinder_caps(cap0: int, cyl_cap_ratio: float = 0.5, depth: int = 5) -> tuple:
     """`Cylinder3DRC`'s cylinder-level caps from the UNet's cap0: the base at
     `cyl_cap_ratio` of it, halved per level, multiples of 256."""
@@ -310,7 +317,7 @@ class SegVFE(nn.Module):
         vox = dynamic_scatter(h, coords, in_range, voxel_cap, mode="max")
         vfeats = torch.relu(self.compress(vox["feats"]))
         return {"feats": mask_rows(vfeats, vox["valid"]), "coords": vox["coords"],
-                "valid": vox["valid"], "inverse": vox["inverse"]}
+                "valid": vox["valid"], "inverse": vox["inverse"], "count": vox["count"]}
 
 
 class Cylinder3DHead(nn.Module):
@@ -362,14 +369,20 @@ class Cylinder3DRC(nn.Module):
         self.encoder.final2 = Linear(c, ncc_heads, generator=generator)
         self.encoder.final3 = Linear(c, num_novel, generator=generator)
 
-    def forward(self, plan, feats) -> dict:
+    def forward(self, plan, feats, cap0: int | None = None) -> dict:
+        """`cap0`: the UNet cap0 the cylinder caps derive from
+        (`cylinder_caps`), the plan's own unless given (a data-parallel rank
+        gives the union's). The output holds `cyl_counts` beside the
+        features and logits."""
         lvl0 = plan.levels[0]
         valid = lvl0.valid
         step = torch.tensor(self.voxel_size, dtype=torch.float32, device=feats.device)
         xyz = lvl0.coords[:, 1:4].float() * step
-        caps = cylinder_caps(lvl0.coords.shape[0], self.cyl_cap_ratio)
+        caps = cylinder_caps(lvl0.coords.shape[0] if cap0 is None else cap0,
+                             self.cyl_cap_ratio)
         vfe = self.vfe(xyz, feats.float(), lvl0.coords[:, 0], valid, caps[0])
-        h_cyl = self.encoder(build_cyl_plan(vfe["coords"], vfe["valid"], caps), vfe["feats"])
+        cplan = build_cyl_plan(vfe["coords"], vfe["valid"], caps)
+        h_cyl = self.encoder(cplan, vfe["feats"])
         # cylinder voxel -> input row (decoder.py:182-326 predict())
         inv = vfe["inverse"]
         ok = (inv >= 0) & (inv < h_cyl.shape[0]) & valid
@@ -380,6 +393,7 @@ class Cylinder3DRC(nn.Module):
             "logits_known": mask_rows(enc.final(h), valid),
             "logits_ncc": mask_rows(enc.final2(h), valid),
             "logits_novel": mask_rows(enc.final3(h), valid),
+            "cyl_counts": cyl_counts(vfe, cplan),
         }
 
 
@@ -416,6 +430,7 @@ class MultiHeadCylinder3D(nn.Module):
         h = self.backbone(plan, vfe["feats"])
         valid0 = plan.levels[0].valid
         out = {"feats": h, "voxel_valid": valid0, "point_inverse": vfe["inverse"],
+               "cyl_counts": cyl_counts(vfe, plan),
                "logits_lab": mask_rows(self.head_lab(h), valid0),
                "logits_unlab": torch.stack([getattr(self, f"head_unlab{k}")(h)
                                             for k in range(self.num_heads)])}

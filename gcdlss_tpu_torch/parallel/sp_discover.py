@@ -11,13 +11,14 @@ to it. Every rank holds the whole batch and a replica of the state, and
 ends the step with the same bits.
 
 The JAX package differentiates through its `shard_map`. Here the gather of
-a pass's rows is an autograd Function whose backward takes the rank's own
-slice of the cotangent (the cotangent is the same on every rank, so it is
-sliced, not summed), and the pass sees its parameters through an identity
-whose backward sums their gradients over the ring: a parameter gets the sum
-of the ranks' shares from the sharded passes plus, once, what the
-replicated part adds (the heads' terms on the candidates; tau, which only
-the replicated part touches, is not summed).
+a pass's rows is `parallel.mesh.gather_rows` with the "replicated" rule,
+whose backward takes the rank's own slice of the cotangent (every rank runs
+the same replicated part on the gathered rows, so the cotangent is the same
+on every rank and is sliced, not summed), and the pass sees its
+parameters through an identity whose backward sums their gradients over
+the ring: a parameter gets the sum of the ranks' shares from the sharded
+passes plus, once, what the replicated part adds (the heads' terms on the
+candidates; tau, which only the replicated part touches, is not summed).
 
 Halo sizing: the combined plan is batch-shaped like Stage 1
 (`sp_step.backbone_halos` on a representative plan); the LaserMix plan is
@@ -33,23 +34,8 @@ import torch
 from ..models.layers import batch_norm_group
 from ..train import discover as td
 from ..train.common import resolve_device
-from .mesh import all_gather_padded, all_reduce, make_mesh, rank_of, world_size
+from .mesh import all_reduce, gather_rows, make_mesh, world_size
 from .sp_step import shard_plan
-
-
-class _GatherRows(torch.autograd.Function):
-    """The ranks' row blocks, in rank order, on every rank; backward: the
-    rank's own rows of the (replicated) cotangent."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[0]
-        return all_gather_padded(x.detach(), group).reshape(-1, *x.shape[1:])
-
-    @staticmethod
-    def backward(ctx, g):
-        r = rank_of(ctx.group)
-        return g[r * ctx.rows:(r + 1) * ctx.rows].contiguous(), None
 
 
 class _RingSumGrads(torch.autograd.Function):
@@ -103,7 +89,7 @@ class ShardedPasses:
         else:
             out = model(splan, x)
         overflow = all_reduce(out.pop("sp_overflow"), self.group)
-        return {k: _GatherRows.apply(v, self.group) for k, v in out.items()}, overflow
+        return {k: gather_rows(v, self.group, "replicated") for k, v in out.items()}, overflow
 
 
 def _check_caps(cfg, world: int) -> None:

@@ -7,6 +7,15 @@ Asymm3DSpconv -> CE + 3 x Lovasz at the points (reference
 unlabeled prototype heads. Labels live at the points; the voxel logits reach
 the points through the VFE's inverse map. The entry points run on the card
 unless the caller names the CPU (`resolve_device`).
+
+`cylinder_train_step` takes a process `group` (`parallel.mesh`): each rank
+holds whole scans (`parallel.mesh.shard_scans`) and runs the model at the
+model's caps, the union's (a rank's voxels at each level are a subset of
+the union's, so it drops none the union keeps; every rank raises where the
+union's would drop some); batch norm, the CE mean and the gradients are global, and
+Lovasz, whose sort runs over every point, is computed whole on every rank
+from the ranks' points gathered in rank order, which is the union's scan
+order.
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ import torch
 from ..eval.metrics import confusion_update
 from ..losses import cross_entropy
 from ..models.cylinder3d import MultiHeadCylinder3D
+from ..models.layers import batch_norm_group
 from ..ops.lovasz import lovasz_softmax
+from ..parallel.mesh import all_reduce, all_reduce_grads, gather_rows, raise_if_union_over
 from .common import TrainState, make_sgd, resolve_device
 from .schedule import make_lr_schedule
 
@@ -78,27 +89,40 @@ def _point_logits(out: dict, pvalid: torch.Tensor):
     return out["logits_lab"][torch.where(ok, inv, 0).long()], ok
 
 
-def cylinder_train_step(state: TrainState, points: dict, cfg: CylinderConfig):
+def cylinder_train_step(state: TrainState, points: dict, cfg: CylinderConfig, group=None):
     """One SGD step in place on `state`; returns (state, metrics: loss, ce,
     lovasz). `points`: xyz [S, P, 3], feats [S, P, C], mapped_labels [S, P],
-    valid [S, P]."""
+    valid [S, P]; with a process `group`, this rank's whole scans, and the
+    step is the one-process step on every rank's (see the module's
+    docstring)."""
     model = state.model
     model.train()
     xyz, feats, bidx, pvalid = _flatten(points)
     plabels = torch.where(pvalid, points["mapped_labels"].reshape(-1), -1)
-    logits_pts, ok = _point_logits(model(xyz, feats, bidx, pvalid), pvalid)
-    tgt = torch.where(ok & (plabels != cfg.unknown_label), plabels, -1)
-    ce = cross_entropy(logits_pts, tgt, ok)
-    lv = lovasz_softmax(torch.softmax(logits_pts, dim=-1), tgt, ok)
-    loss = ce + cfg.lovasz_weight * lv
     lr = make_lr_schedule(cfg)(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    for pg in state.optimizer.param_groups:
+        pg["lr"] = lr
+    with batch_norm_group(group):
+        out = model(xyz, feats, bidx, pvalid)
+        if group is not None:
+            raise_if_union_over(out["cyl_counts"], model.caps, group,
+                                "the Cylinder3D trainer's plan")
+        logits_pts, ok = _point_logits(out, pvalid)
+        tgt = torch.where(ok & (plabels != cfg.unknown_label), plabels, -1)
+        ce = cross_entropy(logits_pts, tgt, ok, group=group)
+        # every rank computes the same Lovasz over the union's points: the
+        # "replicated" rule hands each rank its own points' gradient once
+        lv = lovasz_softmax(gather_rows(torch.softmax(logits_pts, dim=-1), group, "replicated"),
+                            gather_rows(tgt, group), gather_rows(ok, group))
+        loss = ce + cfg.lovasz_weight * lv
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    all_reduce_grads(model.parameters(), group)
     state.optimizer.step()
     state.step += 1
-    return state, {"loss": loss.detach(), "ce": ce.detach(), "lovasz": lv.detach()}
+    # the ranks' CE shares summed; Lovasz is already the union's on every rank
+    ce, lv = all_reduce(ce.detach(), group), lv.detach()
+    return state, {"loss": ce + cfg.lovasz_weight * lv, "ce": ce, "lovasz": lv}
 
 
 @torch.no_grad()

@@ -35,7 +35,6 @@ neighbor maps of the UNet plans go through K3 (`plan_kernel=2`) or K4
 from __future__ import annotations
 
 import copy
-import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -49,14 +48,15 @@ from ..eval.metrics import confusion_update
 from ..losses import (adaptive_threshold_loss, calibration_loss, cross_entropy, mse_prob_loss,
                       soft_cross_entropy)
 from ..losses_lion import energy_loss, gambler_loss
-from ..models.cylinder3d import Cylinder3DRC
+from ..models.cylinder3d import Cylinder3DRC, cylinder_caps
 from ..models.layers import batch_norm_group
 from ..models.minkunet import (DEFAULT_PLANES, MinkUNetRC, assemble_dummy_logits,
                                assemble_dummy_logits_from_heads, assemble_novel_logits)
 from ..ops.plan import PLAN_KERNELS, build_unet_plan, plan_capacity_overflow
 from ..ops.voxelize import sparse_quantize
-from ..parallel.mesh import (all_gather_padded, all_reduce, all_reduce_grads, rank_cap,
-                             rank_caps, rank_of, world_size)
+from ..parallel.mesh import (all_reduce, all_reduce_grads, all_reduce_metrics,
+                             gather_candidates, global_rows, raise_if_dropped,
+                             raise_if_union_over, rank_config, rank_of, rank_share, union_rows)
 from .common import make_sgd, plan_and_gather, resolve_device
 from .feature_mixing import draw_perms, mix_features
 from .lasermix import NUM_AREAS_CHOICES, lasermix_batch, lasermix_voxel_groups
@@ -71,6 +71,8 @@ _CHOICES = {
     "use_lion": (False, True),
     "plan_kernel": PLAN_KERNELS,
 }
+# the capacities a rank of a process group takes its share of (`rank_config`)
+RANK_CAPS = ("voxel_caps", "mix_voxel_caps")
 
 
 @dataclass(frozen=True)
@@ -152,40 +154,6 @@ def check_config(cfg: DiscoverConfig) -> None:
         if getattr(cfg, field) not in choices:
             raise ValueError(f"DiscoverConfig.{field} must be one of {choices}, "
                              f"got {getattr(cfg, field)!r}")
-
-
-# field -> the values the step runs over a process group: the default
-# recipe's; the others reduce over rows in ways not yet written out
-# (feature-mix pairs span ranks, the point-mode plan re-quantizes points,
-# Sinkhorn and LiON keep their own means)
-_DP_CHOICES = {
-    "mix_mode": ("lasermix", "none"),
-    "mix_plan_mode": ("voxel",),
-    "assigner": ("kmeans_hungarian",),
-    "use_lion": (False,),
-}
-
-
-def rank_config(cfg: DiscoverConfig, group) -> DiscoverConfig:
-    """`cfg` as one rank of `group` sees it: its share of the plan and sup
-    capacities (`parallel.mesh.rank_cap`) and of the scans on each side.
-    `None` returns `cfg`. Raises for a variant the data-parallel step does
-    not run (`_DP_CHOICES`) or scans that do not split over the ranks."""
-    if group is None:
-        return cfg
-    for field, choices in _DP_CHOICES.items():
-        if getattr(cfg, field) not in choices:
-            raise ValueError(f"over a process group DiscoverConfig.{field} must be one of "
-                             f"{choices}, got {getattr(cfg, field)!r}")
-    if cfg.arch == "Cylinder3D":
-        raise ValueError("over a process group the step runs MinkUNet students only")
-    w = world_size(group)
-    if cfg.num_sup_scans % w:
-        raise ValueError(f"{cfg.num_sup_scans} scans a side do not split over {w} ranks")
-    return dataclasses.replace(
-        cfg, voxel_caps=rank_caps(cfg.voxel_caps, group),
-        mix_voxel_caps=rank_caps(cfg.mix_voxel_caps, group),
-        sup_voxel_cap=rank_cap(cfg.sup_voxel_cap, w), num_sup_scans=cfg.num_sup_scans // w)
 
 
 @dataclass
@@ -300,18 +268,25 @@ def _mixed_plan_voxel(cfg: DiscoverConfig, plan, feats0, mapped0, is_sup, pseudo
     return mix_plan, mix_feats0, mix_labels0
 
 
-def _mixed_plan_point(cfg: DiscoverConfig, sup_pb: dict, unsup_pb: dict, pseudo, num_areas):
+def _mixed_plan_point(cfg: DiscoverConfig, sup_pb: dict, unsup_pb: dict, pseudo, num_areas,
+                      group=None):
     """The reference's mixed plan: LaserMix the 2S x 2P points and quantize
     them again (`exp_merge_mean_teacher.py:2856-2861`), at capacity
     `mix_voxel_caps[0]`; the voxel mode's oracle. A voxel whose points fall
     in two bands lands in both mixed scans, each time with its first point
-    in that band as representative."""
+    in that band as representative. Over a process `group` each rank mixes
+    its own scan pairs (the same scan block on both sides) at its share of
+    the capacity, and every rank raises if any rank's quantizer dropped a
+    voxel."""
     mxyz, mfeats, mlabels, mvalid = lasermix_batch(sup_pb, unsup_pb, pseudo, num_areas)
     nscan, npt = mxyz.shape[0], mxyz.shape[1]
     n = nscan * npt
     bidx = torch.arange(nscan, dtype=torch.int32, device=mxyz.device).repeat_interleave(npt)
     vox = sparse_quantize(mxyz.reshape(n, 3), bidx, mvalid.reshape(-1), cfg.voxel_size,
                           cfg.mix_voxel_caps[0])
+    if group is not None:
+        raise_if_dropped((vox["count"] - cfg.mix_voxel_caps[0]).clamp(min=0), group,
+                         "the point-mode LaserMix quantizer")
     flat_feats = mfeats.reshape(n, -1)
     mrep_ok = vox["rep"] < n
     mrep = torch.where(mrep_ok, vox["rep"], 0).long()
@@ -327,7 +302,7 @@ def _mixed_plan_point(cfg: DiscoverConfig, sup_pb: dict, unsup_pb: dict, pseudo,
 
 
 def mixed_plan(cfg: DiscoverConfig, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
-               num_areas, sup_pb=None, unsup_pb=None):
+               num_areas, sup_pb=None, unsup_pb=None, group=None):
     """The LaserMix plan of `cfg.mix_plan_mode` with its level-0 features and
     labels (labeled rows their mapped labels, unlabeled rows the teacher's
     argmax where its top probability reaches `pseudo_thr`, else -1).
@@ -347,7 +322,7 @@ def mixed_plan(cfg: DiscoverConfig, plan, feats0, mapped0, is_sup, unsup_mask, m
     srow = torch.where(ok_p, prow, 0).long()
     pseudo = torch.where(ok_p & (maxp_t[srow] >= cfg.pseudo_thr), argm_t[srow], -1).to(
         torch.int32)
-    return _mixed_plan_point(cfg, sup_pb, unsup_pb, pseudo, num_areas)
+    return _mixed_plan_point(cfg, sup_pb, unsup_pb, pseudo, num_areas, group)
 
 
 def candidate_mask(cfg: DiscoverConfig, dummy_t, probs_t, tau, unsup_mask):
@@ -396,58 +371,6 @@ def _assign_kmeans_hungarian(cfg, heads, cand_feats, cand_valid, n_cand, qfeats,
     return rel_mask, n_rel, has_novel, row_of_col[rel_labels] + K
 
 
-def global_rows(lvl0, lcfg: DiscoverConfig, group) -> torch.Tensor:
-    """Each level-0 row's index in the one-process combined plan of every
-    rank's scans (int64 [cap0]). That plan's rows are the valid voxels in
-    (scan, x, y, z) order, sup scans 0..S-1 then unsup scans S..2S-1, and
-    rank r holds sup scans and unsup scans [r S/W, (r + 1) S/W) as its local
-    scans 0..S/W-1 and S/W..2S/W-1: a row's index is the voxel count of the
-    scans before its own in that global order (all ranks' per-scan counts,
-    gathered) plus its rank within its scan. Rows past the valid ones keep
-    their local index (no candidate is there); without a group every row
-    does."""
-    s_l = lcfg.num_sup_scans
-    s_g = s_l * world_size(group)
-    dev = lvl0.valid.device
-    b = lvl0.coords[:, 0].long()
-    local_counts = torch.zeros(2 * s_l, dtype=torch.int64, device=dev).index_add_(
-        0, torch.where(lvl0.valid, b, 0), lvl0.valid.long())
-    scan_l = torch.arange(2 * s_l, device=dev)
-    scan_g = torch.where(scan_l < s_l, rank_of(group) * s_l + scan_l,
-                         s_g + rank_of(group) * s_l + scan_l - s_l)
-    counts = all_reduce(torch.zeros(2 * s_g, dtype=torch.int64, device=dev).index_copy_(
-        0, scan_g, local_counts), group)
-    start_g = torch.cumsum(counts, 0) - counts
-    start_l = torch.cumsum(local_counts, 0) - local_counts
-    rows = torch.arange(lvl0.valid.shape[0], dtype=torch.int64, device=dev)
-    bs = torch.where(lvl0.valid, b, 0)
-    return torch.where(lvl0.valid, start_g[scan_g[bs]] + rows - start_l[bs], rows)
-
-
-def _gather_candidates(key, cand_mask, feats_t, cand_cap: int, group):
-    """The global first `cand_cap` candidates by key over every rank: each
-    rank's own first `cand_cap` (no rank holds more of the global ones),
-    gathered, ordered by key. Returns (features [cand_cap, C], owner rank
-    and local row of each, -1 past the candidates)."""
-    n = key.shape[0]
-    take = min(cand_cap, n)
-    lrows = torch.argsort(key, stable=True)[:take]
-    big = torch.iinfo(torch.int64).max
-    lkey = torch.full((cand_cap,), big, dtype=torch.int64, device=key.device)
-    lkey[:take] = torch.where(cand_mask[lrows], key[lrows], big)
-    lrow = torch.full((cand_cap,), -1, dtype=torch.int64, device=key.device)
-    lrow[:take] = lrows
-    lfeat = torch.zeros((cand_cap, feats_t.shape[1]), dtype=feats_t.dtype, device=key.device)
-    lfeat[:take] = feats_t[lrows]
-    gkey = all_gather_padded(lkey, group).reshape(-1)
-    gfeat = all_gather_padded(lfeat, group).reshape(-1, feats_t.shape[1])
-    grow = all_gather_padded(lrow, group).reshape(-1)
-    order = torch.argsort(gkey, stable=True)[:cand_cap]
-    found = gkey[order] != big
-    owner = torch.where(found, order // cand_cap, -1)
-    return gfeat[order], owner, torch.where(found, grow[order], -1)
-
-
 def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
                         cfg: DiscoverConfig, draws: dict | None = None,
                         sup_pb: dict | None = None, unsup_pb: dict | None = None,
@@ -459,22 +382,32 @@ def discover_train_step(state: DiscoverState, sup_vb: dict, unsup_vb: dict,
     the JAX package's. The point batches `sup_pb` / `unsup_pb` are read only
     by the point-mode mixed plan, which raises without them.
 
-    With a process `group` (`parallel.mesh`), `sup_vb` / `unsup_vb` are this
-    rank's whole scans (`shard_voxel_batch`, the same scan block on both
-    sides, so every LaserMix pair stays on its rank) and the step is the
-    one-process step on every rank's scans under `cfg`, whose capacities and
-    scan counts stay global (`rank_config` derives the rank's): batch norm
-    over all rows, each loss the rank's share of the global mean, gradients
-    summed over the ranks, the candidates mined by their row in the global
-    plan (`global_rows`, `_gather_candidates`), and the assignment and the
-    queue push run on the gathered set on every rank. Every rank must hold
-    the same state and draws (`parallel.mesh.replicate`)."""
-    lcfg = rank_config(cfg, group)
+    With a process `group` (`parallel.mesh`), `sup_vb` / `unsup_vb` (and
+    `sup_pb` / `unsup_pb`, `shard_point_batch`) are this rank's whole scans
+    (`shard_voxel_batch`, the same scan block on both sides, so every
+    LaserMix pair stays on its rank) and the step is the one-process step on
+    every rank's scans under `cfg`, whose capacities and scan counts stay
+    global (`rank_config` derives the rank's): batch norm over all rows,
+    each loss the rank's share of the global mean, gradients summed over the
+    ranks, the candidates mined by their row in the global plan
+    (`global_rows`, `gather_candidates`), and the assignment (k-means and
+    the Hungarian match, or Sinkhorn) and the queue push run on the gathered
+    set on every rank. Every variant runs so: the feature mix pairs the
+    union plan's rows (`parallel.mesh.union_rows`), each rank mixing its
+    share of the pairs; the point-mode quantizer raises where a rank's
+    capacity drops a voxel; Cylinder3D's cylinder levels keep the union's
+    capacities on every rank. Every rank must hold the same state and draws
+    (`parallel.mesh.replicate`)."""
+    lcfg = rank_config(cfg, group, RANK_CAPS)
     if group is not None and sup_vb["coords"].shape[0] != lcfg.sup_voxel_cap:
         raise ValueError(f"a rank's sup batch must have {lcfg.sup_voxel_cap} rows "
                          "(shard_voxel_batch)")
+    apply = apply_model
+    if group is not None and cfg.arch == "Cylinder3D":
+        apply = _union_cylinder_passes(cfg, group)
     with batch_norm_group(group):
-        return _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group)
+        return _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group,
+                           apply)
 
 
 def apply_model(model, plan, feats, kind: str):
@@ -485,6 +418,26 @@ def apply_model(model, plan, feats, kind: str):
     `parallel.sp_discover` runs the passes voxel-sharded instead."""
     del kind
     return model(plan, feats), None
+
+
+def _union_cylinder_passes(cfg: DiscoverConfig, group):
+    """The seam of Cylinder3D's passes over a process group: each rank's
+    cylinder levels at the union's capacities (its voxels are a subset of
+    the union's at every level, so it drops none the one-process step
+    keeps), and every rank raises where the union's voxels (the ranks'
+    counts summed) exceed a level's capacity, as there the one-process step
+    drops some that a rank keeps. Reads the device once a pass."""
+    union_cap0 = {"main": cfg.voxel_caps[0], "mix": cfg.mix_voxel_caps[0]}
+
+    def apply(model, plan, feats, kind: str):
+        out = model(plan, feats, cap0=union_cap0[kind])
+        raise_if_union_over(out["cyl_counts"], cylinder_caps(union_cap0[kind],
+                                                             model.cyl_cap_ratio),
+                            group, "Cylinder3D's cylinder plan (voxel_caps[0] sets its "
+                            "capacities)")
+        return out, None
+
+    return apply
 
 
 def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, group,
@@ -527,7 +480,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
         with torch.no_grad(), torch.profiler.record_function("discover/mix_plan"):
             mix_plan, mix_feats0, mix_labels0 = mixed_plan(
                 lcfg, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
-                draws["num_areas"], sup_pb, unsup_pb)
+                draws["num_areas"], sup_pb, unsup_pb, group)
     if probe:
         return mix_plan
 
@@ -539,12 +492,13 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
         # a capped subset in hashed row order: plan order is coordinate
         # order, so a prefix would keep one spatial corner of the scans; the
         # low 27 bits of the int32-wrapped product are those of the int64 one
-        h = (global_rows(plan.levels[0], lcfg, group) * -1640531527) & 0x07FFFFFF
+        grows = global_rows(plan.levels[0], lcfg.num_sup_scans, group)
+        h = (grows * -1640531527) & 0x07FFFFFF
         key = torch.where(cand_mask, h, h + (1 << 27))
         cand_valid = torch.arange(cand_cap, device=valid0.device) < n_cand.clamp(max=cand_cap)
         # the student's terms of a candidate are taken on the rank that holds
         # its row (`own`); the assignment and the queue see all of them
-        gfeats, owner, lrow = _gather_candidates(key, cand_mask, feats_t, cand_cap, group)
+        (gfeats,), owner, lrow = gather_candidates(key, cand_mask, cand_cap, group, feats_t)
         cand_feats = gfeats * cand_valid[:, None]
         own = cand_valid & (owner == rank_of(group))
         cand_rows = torch.where(own, lrow, 0)
@@ -580,14 +534,17 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
                                                       mix_plan.levels[0].valid, group=group)
         elif cfg.mix_mode == "feature":
             # PolarMix-MT: labeled feature pairs mixed with soft targets,
-            # through the raw `final` / `final2` heads
+            # through the raw `final` / `final2` heads; over a group, pairs
+            # of the union plan's rows, each rank mixing its share of them
+            src = union_rows(grows, valid0, cfg.voxel_caps[0], group, (feats_s, 0),
+                             (sup_targets, -1), (sup_mask & (sup_targets >= 0), False))
             mixf, mixp, mixok = mix_features(
-                None, feats_s, sup_targets, sup_mask & (sup_targets >= 0), K + 1,
-                mixing_ratio=cfg.mixing_ratio_feat, perms=draws["featmix_perms"])
+                None, *src, K + 1, mixing_ratio=cfg.mixing_ratio_feat,
+                perms=tuple(rank_share(p, group) for p in draws["featmix_perms"]))
             mix_logits = assemble_dummy_logits_from_heads(
                 mixf, {"kernel": heads.final.kernel, "bias": heads.final.bias},
                 {"kernel": heads.final2.kernel, "bias": heads.final2.bias})
-            l_lm = cfg.lasermix_coeff * soft_cross_entropy(mix_logits, mixp, mixok)
+            l_lm = cfg.lasermix_coeff * soft_cross_entropy(mix_logits, mixp, mixok, group=group)
         else:
             l_lm = torch.zeros((), device=valid0.device)
     with torch.profiler.record_function("discover/losses"):
@@ -595,9 +552,10 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
             # LiON: the Gambler and energy-margin losses in f32, in place of
             # the calibration loss
             l_gam = gambler_loss(dummy_s.float(), sup_targets, valid0, cfg.unknown_label,
-                                 reward_default=cfg.lion_reward, ood_reg=cfg.lion_ood_reg)
+                                 reward_default=cfg.lion_reward, ood_reg=cfg.lion_ood_reg,
+                                 group=group)
             l_en, _ = energy_loss(dummy_s.float(), sup_targets, valid0,
-                                  ood_ind=cfg.unknown_label)
+                                  ood_ind=cfg.unknown_label, group=group)
             l_cal = cfg.lion_coeff * (l_gam + l_en)
         else:
             l_cal = cfg.calib_coeff * calibration_loss(dummy_s, sup_targets, cfg.unknown_label,
@@ -652,9 +610,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
         "thr_loss": l_thr, "novel_unsup": g * l_nov_unsup, "novel_sup": g * l_nov_sup,
         "ncc_unsup": g * l_ncc,
     }
-    # the ranks' shares -> the global values
-    total = all_reduce(torch.stack([v.detach() for v in metrics.values()]), group)
-    metrics = dict(zip(metrics, total.unbind()))
+    metrics = all_reduce_metrics(metrics, group)  # the ranks' shares -> the global values
     # unique voxels dropped by the capacities of the main and mixed plans
     plan_ovf = plan_capacity_overflow(plan)
     if mix_plan is not None:

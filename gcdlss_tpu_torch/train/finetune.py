@@ -33,6 +33,16 @@ Each step draws its permutations from a generator seeded by (1234, step)
 (the Extra step: (4321, step)), as the JAX package folds the step into a
 fixed key: a resumed run draws what an unbroken one draws. `draws=` replaces
 them, e.g. with the JAX package's.
+
+Both steps take a process `group` (`parallel.mesh`), on the pattern of
+`train.discover`: each rank holds whole scans (`shard_voxel_batch`) and
+plans them at its share of the capacities; batch norm, the loss means and
+the gradients are global; the mixing permutations are drawn over the union
+plan's rows and each rank mixes its share of them, reading the partner rows
+of other ranks (`parallel.mesh.union_rows`); the cluster miner runs once,
+on rank 0, over every rank's rows, and its mask is broadcast. Every rank
+ends with the parameters, statistics and metrics of the one-process step
+on the union batch.
 """
 
 from __future__ import annotations
@@ -43,8 +53,12 @@ import numpy as np
 import torch
 
 from ..losses import calibration_loss, cross_entropy, soft_cross_entropy
-from ..models.layers import normed_linear
+from ..models.layers import batch_norm_group, normed_linear
 from ..models.minkunet import DEFAULT_PLANES, HEADS, MinkUNetRC, assemble_dummy_logits
+from ..ops.plan import plan_capacity_overflow
+from ..parallel.mesh import (all_reduce, all_reduce_grads, all_reduce_metrics, gather_rows,
+                             global_rows, global_scans, raise_if_dropped, rank_config, rank_of,
+                             rank_share, replicate, union_rows)
 from .common import (StepClock, TrainState, make_sgd, plan_and_gather, resolve_device,
                      voxel_batch_to_device)
 from .discover import _combine_batches
@@ -191,84 +205,100 @@ def _mixed_logits(cfg: FineTuneConfig, model: MinkUNetRC, mixf: torch.Tensor) ->
     return torch.cat([kin, kout.amax(dim=-1, keepdim=True)], dim=-1)
 
 
-def _entropy_terms(cfg: FineTuneConfig, logits, valid):
+def _entropy_terms(cfg: FineTuneConfig, logits, valid, group=None):
     """id / ood entropy regularisers (`exp.py:1731-1746`). The ood term is a
     masked SUM (the reference's `mean(sum(...))` over a 1-D vector)."""
     probs = torch.softmax(logits.float(), dim=-1)
     m = valid.float()
     known = probs[:, :-1]
     ent = -(known * torch.log(known + 1e-8)).sum(dim=-1)
-    l_id = cfg.id_entropy_coeff * (ent * m).sum() / m.sum().clamp(min=1.0)
+    l_id = cfg.id_entropy_coeff * (ent * m).sum() / all_reduce(m.sum(), group).clamp(min=1.0)
     rc = probs[:, -1]
     l_ood = cfg.ood_entropy_coeff * (rc * torch.log(rc + 1e-8) * m).sum()
     return l_id + l_ood
 
 
-def _sup_losses(cfg: FineTuneConfig, model, out, targets, valid0, perms, step: int):
+def _sup_losses(cfg: FineTuneConfig, model, out, targets, valid0, perms, step: int,
+                group=None, grows=None):
     """Sup CE (with the mixed-feature rows appended in the pairs and centroid
     modes), calibration and the entropy terms; shared by both steps. Returns
-    (loss, dummy logits, parts)."""
+    (loss, dummy logits, parts). Over a process `group`, the rank's shares:
+    `perms` are over the union plan's rows, which `grows` (each local row's
+    index there) places, and the rank mixes its share of them."""
     logits = assemble_dummy_logits(out)  # [N, K + 1]
     # the reference appends the mixed rows BEFORE the calibration / entropy
     # terms (`exp.py:1709-1735`), so they take the calibration too
     ext_logits, ext_targets, ext_valid = logits, targets, valid0
     if cfg.mix_mode == "none":
-        seg = cross_entropy(logits, targets, valid0)
+        seg = cross_entropy(logits, targets, valid0, group=group)
     else:
-        labeled = valid0 & (targets >= 0)
+        src = union_rows(grows, valid0, cfg.voxel_caps[0], group, (out["feats"], 0),
+                         (targets, -1), (valid0 & (targets >= 0), False))
+        perms = tuple(rank_share(p, group) for p in perms)
         if cfg.mix_mode == "pairs":
-            mixf, mixp, mixok = mix_features(None, out["feats"], targets, labeled,
-                                             cfg.num_labeled_classes + 1, cfg.beta_coeff,
-                                             mixing_ratio=_mix_ratio(cfg, step), perms=perms)
+            mixf, mixp, mixok = mix_features(None, *src, cfg.num_labeled_classes + 1,
+                                             cfg.beta_coeff, mixing_ratio=_mix_ratio(cfg, step),
+                                             perms=perms)
             mix_logits = _mixed_logits(cfg, model, mixf)
-            mix_seg = soft_cross_entropy(mix_logits, mixp, mixok)
+            mix_seg = soft_cross_entropy(mix_logits, mixp, mixok, group=group)
             # the mixed rows' hard target: their dominant component
             mix_tgt = torch.where(mixok, mixp.argmax(dim=-1), -1)
         else:
-            mixf, mix_tgt, mixok = _centroid_mix(out["feats"], targets, labeled,
-                                                 cfg.unknown_label, perms)
+            mixf, mix_tgt, mixok = _centroid_mix(*src, cfg.unknown_label, perms)
             mix_logits = _mixed_logits(cfg, model, mixf)
-            mix_seg = cross_entropy(mix_logits, mix_tgt, mixok)
-        n0, n_mix = valid0.sum(), mixok.sum()
-        seg = ((cross_entropy(logits, targets, valid0) * n0 + mix_seg * n_mix)
+            mix_seg = cross_entropy(mix_logits, mix_tgt, mixok, group=group)
+        n0, n_mix = all_reduce(valid0.sum(), group), all_reduce(mixok.sum(), group)
+        seg = ((cross_entropy(logits, targets, valid0, group=group) * n0 + mix_seg * n_mix)
                / (n0 + n_mix).clamp(min=1).float())
         ext_logits = torch.cat([logits, mix_logits])
         ext_targets = torch.cat([targets, mix_tgt.to(targets.dtype)])
         ext_valid = torch.cat([valid0, mixok])
     calib = cfg.calib_coeff * calibration_loss(ext_logits, ext_targets, cfg.unknown_label,
-                                               ext_valid)
+                                               ext_valid, group=group)
     loss = seg + calib
     if cfg.entropy_minimize:
-        loss = loss + _entropy_terms(cfg, ext_logits, ext_valid)
+        loss = loss + _entropy_terms(cfg, ext_logits, ext_valid, group)
     return loss, logits, {"seg": seg, "calib": calib}
 
 
-def _sgd_step(state: TrainState, cfg: FineTuneConfig, loss: torch.Tensor) -> None:
+def _sgd_step(state: TrainState, cfg: FineTuneConfig, loss: torch.Tensor, group=None) -> None:
     lr = make_lr_schedule(cfg)(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
+    for pg in state.optimizer.param_groups:
+        pg["lr"] = lr
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads(state.model.parameters(), group)
     state.optimizer.step()
     state.step += 1
 
 
 def finetune_train_step(state: TrainState, batch: dict, cfg: FineTuneConfig,
-                        draws: dict | None = None):
+                        draws: dict | None = None, group=None):
     """One Stage-1.5 step in place on `state`; returns (state, metrics), the
-    metrics ('loss', 'seg', 'calib') as tensors on the device."""
+    metrics ('loss', 'seg', 'calib') as tensors on the device.
+
+    With a process `group`, `batch` is this rank's whole scans
+    (`shard_voxel_batch`) of a union batch of `cfg.num_sup_scans` scans, and
+    the step is the one-process step on that union batch (see the module's
+    docstring); every rank raises if any rank's plan drops a voxel."""
     check_config(cfg)
     model = state.model
     model.train()
-    plan, feats0, _, mapped0 = plan_and_gather(batch, cfg.voxel_caps)
+    lcfg = rank_config(cfg, group)
+    plan, feats0, _, mapped0 = plan_and_gather(batch, lcfg.voxel_caps)
     valid0 = plan.levels[0].valid
     targets = torch.where(valid0, mapped0, -1)
+    grows = global_rows(plan.levels[0], lcfg.num_sup_scans, group, sides=1)
+    if group is not None:
+        raise_if_dropped(plan_capacity_overflow(plan), group, "the Stage-1.5 plan")
     if draws is None:
-        draws = draw_step_randoms(cfg, PLAIN_SEED, state.step, valid0.shape[0], valid0.device)
-    out = model(plan, feats0)
-    loss, _, parts = _sup_losses(cfg, model, out, targets, valid0, draws["perms"], state.step)
-    _sgd_step(state, cfg, loss)
-    return state, {k: v.detach() for k, v in {"loss": loss, **parts}.items()}
+        draws = draw_step_randoms(cfg, PLAIN_SEED, state.step, cfg.voxel_caps[0], valid0.device)
+    with batch_norm_group(group):
+        out = model(plan, feats0)
+        loss, _, parts = _sup_losses(cfg, model, out, targets, valid0, draws["perms"],
+                                     state.step, group, grows)
+        _sgd_step(state, cfg, loss, group)
+    return state, all_reduce_metrics({"loss": loss, **parts}, group)
 
 
 def _threshold(cfg: FineTuneConfig, step: int) -> float:
@@ -358,16 +388,35 @@ def _cluster_unknown_mask_host(coords, unsup, feats, probs_known):
     return mask
 
 
-def _cluster_unknown_mask(coords0, unsup_mask, feats0, probs_known):
+def _cluster_unknown_mask(coords0, unsup_mask, feats0, probs_known, group=None):
     """`_cluster_unknown_mask_host` on the plan's level-0 rows: the four
-    tensors read from the device in one copy, the mask sent back."""
+    tensors read from the device in one copy, the mask sent back.
+
+    Over a process `group` (`coords0` with the scan index made global), the
+    ranks' rows are gathered, the miner runs once, on rank 0 (a host DBSCAN
+    and k-means run on every rank need not give every rank the same bits),
+    and the mask is broadcast; each rank takes its own rows. A scan's rows
+    reach the miner in the order the one-process plan holds them (each scan
+    lies whole on one rank, in (x, y, z) order), so it sees the union's
+    input."""
     dev = unsup_mask.device
     f, k = feats0.shape[1], probs_known.shape[1]
     rows = torch.cat([coords0.double(), unsup_mask.double()[:, None], feats0.double(),
-                      probs_known.double()], dim=1).cpu().numpy()  # the step's one read
-    mask = _cluster_unknown_mask_host(rows[:, :4].astype(np.int64), rows[:, 4] > 0,
-                                      rows[:, 5:5 + f], rows[:, 5 + f:5 + f + k])
-    return torch.as_tensor(mask, device=dev)
+                      probs_known.double()], dim=1)
+    n = rows.shape[0]
+    rows = gather_rows(rows, group)
+    if rank_of(group) == 0:
+        rows = rows.cpu().numpy()  # the step's one read
+        mask = torch.as_tensor(_cluster_unknown_mask_host(
+            rows[:, :4].astype(np.int64), rows[:, 4] > 0, rows[:, 5:5 + f],
+            rows[:, 5 + f:5 + f + k]), device=dev)
+    else:
+        mask = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+    if group is None:
+        return mask
+    mask = mask.to(torch.uint8)
+    replicate(mask, group=group)
+    return mask[rank_of(group) * n:(rank_of(group) + 1) * n].bool()
 
 
 def _pseudo_labels(cfg: FineTuneConfig, probs, mapped0, unsup_mask, thr: float,
@@ -392,43 +441,58 @@ def _pseudo_labels(cfg: FineTuneConfig, probs, mapped0, unsup_mask, thr: float,
 
 
 def finetune_extra_train_step(state: TrainState, sup_vb: dict, unsup_vb: dict,
-                              cfg: FineTuneConfig, draws: dict | None = None):
+                              cfg: FineTuneConfig, draws: dict | None = None, group=None):
     """ExpMixExtra*FineTuning / ExpRCExtra / ExpClusterFineTuning step in
     place on `state`: one forward over the sup + unsup scans, the sup losses
     of `finetune_train_step` on the sup rows, plus `unsup_coeff` x the
     pseudo-label CE on the unsup rows (`exp.py:2236-2798`). Returns (state,
-    metrics): 'loss', 'seg', 'calib', 'unsup_seg', 'thr'."""
+    metrics): 'loss', 'seg', 'calib', 'unsup_seg', 'thr'.
+
+    With a process `group`, `sup_vb` / `unsup_vb` are this rank's whole
+    scans of each side (`shard_voxel_batch`, the same scan block on both),
+    and the step is the one-process step on the union batch (see the
+    module's docstring); every rank raises if any rank's plan drops a
+    voxel."""
     check_config(cfg)
     model = state.model
     model.train()
-    combined = _combine_batches(sup_vb, unsup_vb, cfg)
-    plan, feats0, _, mapped0 = plan_and_gather(combined, cfg.voxel_caps)
+    lcfg = rank_config(cfg, group)
+    combined = _combine_batches(sup_vb, unsup_vb, lcfg)
+    plan, feats0, _, mapped0 = plan_and_gather(combined, lcfg.voxel_caps)
     n_in = sup_vb["coords"].shape[0] + unsup_vb["coords"].shape[0]
     ok = plan.rep < n_in
     valid0 = plan.levels[0].valid
-    is_sup = ok & (plan.rep < cfg.sup_voxel_cap)
+    is_sup = ok & (plan.rep < lcfg.sup_voxel_cap)
     sup_mask = is_sup & valid0
     unsup_mask = valid0 & ~is_sup
+    grows = global_rows(plan.levels[0], lcfg.num_sup_scans, group)
+    if group is not None:
+        raise_if_dropped(plan_capacity_overflow(plan), group, "the Stage-1.5 plan")
     if draws is None:
-        draws = draw_step_randoms(cfg, EXTRA_SEED, state.step, valid0.shape[0], valid0.device)
+        draws = draw_step_randoms(cfg, EXTRA_SEED, state.step, cfg.voxel_caps[0], valid0.device)
     thr = _threshold(cfg, state.step)
 
-    out = model(plan, feats0)
-    sup_targets = torch.where(sup_mask, mapped0, -1)
-    loss, logits, parts = _sup_losses(cfg, model, out, sup_targets, sup_mask, draws["perms"],
-                                      state.step)
-    probs = torch.softmax(logits.detach(), dim=-1)
-    cluster_mask = None
-    if cfg.extra_mode == "cluster":
-        # the level-0 rows' coordinates, gathered as feats0 is
-        coords0 = combined["coords"][torch.where(ok, plan.rep, 0).long()]
-        cluster_mask = _cluster_unknown_mask(coords0, unsup_mask, feats0,
-                                             probs[:, :cfg.num_labeled_classes])
-    pseudo, rows = _pseudo_labels(cfg, probs, mapped0, unsup_mask, thr, cluster_mask)
-    l_unsup = cfg.unsup_coeff * cross_entropy(logits, pseudo, rows)
-    loss = loss + l_unsup
-    _sgd_step(state, cfg, loss)
-    metrics = {k: v.detach() for k, v in {"loss": loss, **parts, "unsup_seg": l_unsup}.items()}
+    with batch_norm_group(group):
+        out = model(plan, feats0)
+        sup_targets = torch.where(sup_mask, mapped0, -1)
+        loss, logits, parts = _sup_losses(cfg, model, out, sup_targets, sup_mask,
+                                          draws["perms"], state.step, group, grows)
+        probs = torch.softmax(logits.detach(), dim=-1)
+        cluster_mask = None
+        if cfg.extra_mode == "cluster":
+            # the level-0 rows' coordinates, gathered as feats0 is, the scan
+            # index the union's
+            coords0 = combined["coords"][torch.where(ok, plan.rep, 0).long()]
+            scans = global_scans(lcfg.num_sup_scans, group, coords0.device)
+            coords0 = torch.cat([scans[coords0[:, 0].long()].to(coords0.dtype)[:, None],
+                                 coords0[:, 1:]], dim=1)
+            cluster_mask = _cluster_unknown_mask(coords0, unsup_mask, feats0,
+                                                 probs[:, :cfg.num_labeled_classes], group)
+        pseudo, rows = _pseudo_labels(cfg, probs, mapped0, unsup_mask, thr, cluster_mask)
+        l_unsup = cfg.unsup_coeff * cross_entropy(logits, pseudo, rows, group=group)
+        loss = loss + l_unsup
+        _sgd_step(state, cfg, loss, group)
+    metrics = all_reduce_metrics({"loss": loss, **parts, "unsup_seg": l_unsup}, group)
     metrics["thr"] = torch.full((), thr, dtype=torch.float32, device=loss.device)  # no copy
     return state, metrics
 

@@ -131,13 +131,38 @@ def _run_stage(kind: str, kw: dict, sup: dict, unsup: dict, group=None, rank=0, 
     out.update(student=_snapshot(state.student), teacher=_snapshot(state.teacher),
                queue=tuple(a.clone() for a in state.queue), tau=state.tau.detach().clone())
     # each row's index in the one-process plan, and its voxel
-    lcfg = td.rank_config(cfg, group)
+    lcfg = mesh.rank_config(cfg, group)
     plan, *_ = tcommon.plan_and_gather(td._combine_batches(sup, unsup, lcfg), lcfg.voxel_caps)
     lvl0 = plan.levels[0]
-    out["rows"] = (td.global_rows(lvl0, lcfg, group) if group is not None
-                   else torch.arange(lvl0.valid.shape[0]))
+    out["rows"] = mesh.global_rows(lvl0, lcfg.num_sup_scans, group)
     out["coords"], out["valid"] = lvl0.coords.clone(), lvl0.valid.clone()
     return out
+
+
+def _gather_rows_inputs():
+    """Each rank's rows and the weights of `_gather_rows_losses`."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(WORLD, 5, 3, generator=g, dtype=torch.float64)
+    return x, torch.randn(WORLD, WORLD * 5, 3, generator=g, dtype=torch.float64)
+
+
+def _gather_rows_losses(rows, w, rank: int):
+    """The two rules' losses of `mesh.gather_rows`' output `rows` (every
+    rank's rows, in rank order): "replicated", one global function the same
+    on every rank; "summed", this rank's share of a sum of shares."""
+    return {"replicated": (w[0] * rows).sum().square() + rows.pow(3).sum(),
+            "summed": (w[rank] * rows).square().sum()}
+
+
+def _gather_rows_grads(group, rank: int) -> dict:
+    """Each backward rule's gradient of this rank's rows."""
+    x, w = _gather_rows_inputs()
+    grads = {}
+    for rule in ("replicated", "summed"):
+        xr = x[rank].clone().requires_grad_(True)
+        _gather_rows_losses(mesh.gather_rows(xr, group, rule), w, rank)[rule].backward()
+        grads[rule] = xr.grad
+    return grads
 
 
 def _worker(rank: int, world: int, tmp: str, kind: str, kw: dict, sup: dict, unsup: dict):
@@ -147,6 +172,8 @@ def _worker(rank: int, world: int, tmp: str, kind: str, kw: dict, sup: dict, uns
     try:
         out = _run_stage(kind, kw, _tensors(sup), _tensors(unsup), dist.group.WORLD, rank,
                          world)
+        if kind == "pretrain":
+            out["gather_rows"] = _gather_rows_grads(dist.group.WORLD, rank)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -174,6 +201,7 @@ def _assert_ranks_equal(ranks: list) -> None:
 
 
 def test_stage1_step_over_a_group_is_the_union_step(data, tmp_path):
+    """The Stage-1 step, and `mesh.gather_rows`' backward rules."""
     kw = dict(num_labeled_classes=17, num_classes=19, unknown_label=data["unk"],
               voxel_caps=CAPS, arch="MinkUNet14", planes=PLANES, steps_per_epoch=1, epochs=3,
               warmup_epochs=1)
@@ -185,6 +213,18 @@ def test_stage1_step_over_a_group_is_the_union_step(data, tmp_path):
         np.testing.assert_allclose(float(mg["loss"]), float(m1["loss"]), rtol=1e-5)
     for k, v in one["model"].items():
         _close(ranks[0]["model"][k], v, what=k)
+    # `mesh.gather_rows`' two backward rules against the one-process
+    # gradient of the same global loss: "replicated" (every rank computes
+    # it whole) and "summed" (the ranks' shares add up to it)
+    x, w = _gather_rows_inputs()
+    for rule in ("replicated", "summed"):
+        xs = x.reshape(WORLD * 5, 3).clone().requires_grad_(True)
+        losses = [_gather_rows_losses(xs, w, r)[rule] for r in range(WORLD)]
+        (losses[0] if rule == "replicated" else sum(losses)).backward()
+        want = xs.grad.reshape(WORLD, 5, 3)
+        for r in range(WORLD):
+            torch.testing.assert_close(ranks[r]["gather_rows"][rule], want[r], rtol=1e-12,
+                                       atol=1e-12, msg=rule)
 
 
 @pytest.fixture(scope="module")
@@ -309,14 +349,21 @@ def test_shards_hold_whole_scans(data):
 
 def test_group_refusals(data):
     """Without a group the step runs as before (`rank_config` is the
-    identity); over one, the variants the group step does not run and scans
-    that do not split raise before any collective."""
+    identity); over one, every variant the step runs is taken (each is held
+    to the union step by `test_torch_dp_families.py`) and only scans that
+    do not split raise, before any collective."""
     cfg = td.DiscoverConfig(**_discover_kw(data["unk"]))
-    assert td.rank_config(cfg, None) is cfg
-    for bad in (dict(mix_mode="feature"), dict(mix_plan_mode="point"),
-                dict(assigner="sinkhorn"), dict(use_lion=True), dict(num_sup_scans=3)):
-        with pytest.raises(ValueError):
-            td.rank_config(dataclasses.replace(cfg, **bad), _FakeGroup())
+    assert mesh.rank_config(cfg, None, td.RANK_CAPS) is cfg
+    for field, choices in td._CHOICES.items():
+        for value in choices:
+            lcfg = mesh.rank_config(dataclasses.replace(cfg, **{field: value}), _FakeGroup(),
+                                    td.RANK_CAPS)
+            assert lcfg.voxel_caps == lcfg.mix_voxel_caps == tuple(c // WORLD for c in CAPS)
+            assert lcfg.num_sup_scans == 1 and lcfg.sup_voxel_cap == SIDE_CAP // WORLD
+    mesh.rank_config(dataclasses.replace(cfg, arch="Cylinder3D"), _FakeGroup(), td.RANK_CAPS)
+    assert not hasattr(td, "_DP_CHOICES")
+    with pytest.raises(ValueError, match="split"):
+        mesh.rank_config(dataclasses.replace(cfg, num_sup_scans=3), _FakeGroup(), td.RANK_CAPS)
     with pytest.raises(RuntimeError):
         mesh.make_mesh()
 
@@ -331,4 +378,3 @@ def _fake_world_size(monkeypatch):
     real = mesh.world_size
     monkeypatch.setattr(mesh, "world_size",
                         lambda g: WORLD if isinstance(g, _FakeGroup) else real(g))
-    monkeypatch.setattr(td, "world_size", mesh.world_size)

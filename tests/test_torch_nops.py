@@ -236,8 +236,10 @@ def test_novel_branch_matches_jax(case):
                                bias=_t(params["final3"]["bias"])))
     tqueue = tn.FeatureQueue(_t(qfeats), _t(counts), torch.tensor(2, dtype=torch.int32))
     got = tn._novel_branch(tn.NopsConfig(**dataclasses.asdict(cfg)), _t(dummy), _t(feats),
-                           _t(unsup), tqueue, heads, _t(scores))
-    assert set(got) == set(ref)
+                           _t(unsup), tqueue, heads, _t(scores), torch.arange(n))
+    # the port's `own` (the candidates whose terms a rank takes) is every one
+    assert set(got) == set(ref) | {"own"}
+    _eq(got.pop("own"), ref["cand_valid"], "own")
     for k, v in ref.items():
         if k == "cand_feats":
             _close(got[k], v, 1e-6, k)
