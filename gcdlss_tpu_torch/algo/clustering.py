@@ -67,28 +67,56 @@ def kmeans_pp_init(x: torch.Tensor, valid: torch.Tensor, k: int, pre_centers=Non
 
 
 def _semi_lloyd(x, valid, l_feats, l_valid, l_targets, centers, k: int, iters: int,
-                n_labeled_clusters: int):
+                n_labeled_clusters: int, with_inertia: bool = True):
     """Lloyd iterations whose first `n_labeled_clusters` centroids mix the
     labeled class sums into their assigned unlabeled mass every step (the
     reference's `fit_mix_once` rule). Returns (centers, assignments (-1 on
-    masked rows), inertia)."""
+    masked rows), inertia (None unless `with_inertia`)).
+
+    The inertia is the sum of each valid row's squared distance to its
+    nearest centre. Where the last update left the assignment as it was (the
+    iterations converged), it is taken from the partition alone: each row's
+    distance to its own cluster's centre, recomputed by the same update in a
+    numbering of the clusters that the partition fixes (the anchored ones
+    first, the rest by their first row). The distance matrix's columns and
+    the update's product round by the clusters' numbers, so two restarts
+    that reach one partition under two numberings would otherwise differ in
+    the last bits; this way they tie exactly, and the first is kept."""
     vmask = valid[:, None].to(x.dtype)
     if n_labeled_clusters:
         onehot_l = torch.nn.functional.one_hot(
             l_targets.clamp(0, n_labeled_clusters - 1).long(), n_labeled_clusters).to(x.dtype)
         onehot_l = onehot_l * l_valid[:, None].to(x.dtype)
         l_sums, l_cnts = onehot_l.T @ l_feats, onehot_l.sum(dim=0)[:, None]
-    for _ in range(iters):
-        assign = (-pairwise_distance(x, centers)).argmax(dim=-1)
+
+    def update(assign, centers):
         onehot = torch.nn.functional.one_hot(assign, k).to(x.dtype) * vmask
         sums, cnts = onehot.T @ x, onehot.sum(dim=0)[:, None]
         if n_labeled_clusters:
             sums = torch.cat([sums[:n_labeled_clusters] + l_sums, sums[n_labeled_clusters:]])
             cnts = torch.cat([cnts[:n_labeled_clusters] + l_cnts, cnts[n_labeled_clusters:]])
-        centers = torch.where(cnts > 0, sums / cnts.clamp(min=1.0), centers)
+        return torch.where(cnts > 0, sums / cnts.clamp(min=1.0), centers)
+
+    prev = None
+    for _ in range(iters):
+        prev = (-pairwise_distance(x, centers)).argmax(dim=-1)
+        centers = update(prev, centers)
     dist = pairwise_distance(x, centers)
     assign = (-dist).argmax(dim=-1)
-    inertia = (dist.min(dim=-1).values * valid).sum()
+    inertia = None
+    if with_inertia and prev is not None and torch.equal(prev[valid], assign[valid]):
+        rows = torch.arange(x.shape[0], device=x.device)
+        member = (assign[:, None] == torch.arange(k, device=x.device)) & valid[:, None]
+        first = torch.where(member, rows[:, None], x.shape[0]).amin(dim=0)
+        first[:n_labeled_clusters] = -1
+        order = torch.sort(first, stable=True).indices  # canonical number -> cluster
+        canon = torch.empty_like(order)
+        canon[order] = torch.arange(k, device=x.device)
+        own = canon[assign]
+        own_centers = update(own, centers[order])[own]
+        inertia = ((x - own_centers).square().sum(dim=-1) * valid).sum()
+    elif with_inertia:
+        inertia = (dist.min(dim=-1).values * valid).sum()
     return centers, torch.where(valid, assign, -1), inertia
 
 
@@ -104,6 +132,7 @@ class OnlineSemiKMeans:
         self.device = torch.device(device)
         self.cluster_centers_ = None
         self.labels_ = None
+        self.inertias_ = None
 
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -114,23 +143,31 @@ class OnlineSemiKMeans:
                               picks=None if picks is None else picks[i])
 
     def fit(self, x: np.ndarray, picks=None):
-        """k-means++ and Lloyd `n_init` times; the run of least inertia is
-        kept. `picks`: one k-means++ pick list per restart, in place of the
-        draws."""
+        """k-means++ and Lloyd `n_init` times; the first run of least inertia
+        is kept (`inertias_`: each run's, None for a single run). `picks`: one
+        k-means++ pick list per restart, in place of the draws."""
         x = self._tensor(x)
         valid = torch.ones(x.shape[0], dtype=torch.bool, device=self.device)
-        best = None
+        runs = []
         for i in range(self.n_init):
             centers = self._init_centers(i, x, valid, None, picks)
-            centers, labels, inertia = _semi_lloyd(
+            runs.append(_semi_lloyd(
                 x, valid, x[:1] * 0, torch.zeros(1, dtype=torch.bool, device=self.device),
                 torch.zeros(1, dtype=torch.int32, device=self.device), centers, self.k,
-                self.max_iterations, 0)
-            if best is None or float(inertia) < best[0]:
-                best = (float(inertia), centers, labels)
-        self.cluster_centers_ = best[1].cpu().numpy()
-        self.labels_ = best[2].cpu().numpy()
+                self.max_iterations, 0, with_inertia=self.n_init > 1))
+        centers, labels = self._keep(runs)
+        self.cluster_centers_ = centers.cpu().numpy()
+        self.labels_ = labels.cpu().numpy()
         return self
+
+    def _keep(self, runs: list) -> tuple:
+        """The (centers, labels) of the first run of least inertia."""
+        self.inertias_ = [None if r[2] is None else float(r[2]) for r in runs]
+        best = 0
+        for i in range(1, len(runs)):
+            if self.inertias_[i] < self.inertias_[best]:
+                best = i
+        return runs[best][:2]
 
     def fit_mix(self, u_feats: np.ndarray, l_feats: np.ndarray, l_targets: np.ndarray,
                 cluster_center=None, center_only: bool = False, picks=None):
@@ -145,21 +182,20 @@ class OnlineSemiKMeans:
         lvalid = torch.ones(lf.shape[0], dtype=torch.bool, device=self.device)
         onehot = torch.nn.functional.one_hot(lt.long(), n_lab).to(torch.float32)
         anchors = (onehot.T @ lf) / onehot.sum(dim=0)[:, None].clamp(min=1.0)
-        best = None
+        runs = []
         for i in range(self.n_init):
             if cluster_center is not None:
                 centers = self._tensor(cluster_center)
             else:
                 centers = self._init_centers(i, u, uvalid, anchors, picks)
-            centers, ulabels, inertia = _semi_lloyd(u, uvalid, lf, lvalid, lt, centers, self.k,
-                                                    self.max_iterations, n_lab)
-            if best is None or float(inertia) < best[0]:
-                best = (float(inertia), centers, ulabels)
-        self.cluster_centers_ = best[1].cpu().numpy()
+            runs.append(_semi_lloyd(u, uvalid, lf, lvalid, lt, centers, self.k,
+                                    self.max_iterations, n_lab, with_inertia=self.n_init > 1))
+        centers, ulabels = self._keep(runs)
+        self.cluster_centers_ = centers.cpu().numpy()
         if center_only:
             return self.cluster_centers_
-        l_labels = (-pairwise_distance(lf, best[1])).argmax(dim=-1).cpu().numpy()
-        self.labels_ = np.concatenate([l_labels, best[2].cpu().numpy()])
+        l_labels = (-pairwise_distance(lf, centers)).argmax(dim=-1).cpu().numpy()
+        self.labels_ = np.concatenate([l_labels, ulabels.cpu().numpy()])
         return self.labels_
 
 

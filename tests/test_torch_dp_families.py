@@ -16,8 +16,9 @@ rtol 1e-5 (atol 1e-6); parameters, statistics and queue features 1e-4 of
 each tensor's largest magnitude, taken as at least 1e-3. Counts, the
 queue's counts and head and the plans' overflow are exact; every rank ends
 with the same bits; the cluster miner's mask is the union's, row for row.
-The second step runs at the full rate. The Cylinder3D trainer, ill-conditioned
-there, is held against a control run as well (CONTROLLED).
+The second step runs at the full rate. The Cylinder3D trainer and Stage 2 on
+Cylinder3DRC, ill-conditioned there, may be held against control runs as well
+(CONTROL_DRAWS).
 """
 
 import os
@@ -40,20 +41,40 @@ from gcdlss_tpu_torch.train import nops as tn
 WORLD = 2
 CAPS = (3584, 2816, 2048, 1792, 1536)  # the union's 2 + 2 scans; a rank's are half
 CYL_CAPS = (16384,) + CAPS[1:]  # cylinder levels (8192, 4096, 2048, 1024, 512)
-# The Cylinder3D trainer's control. At these sizes training-mode batch norm
-# makes its step ill-conditioned (`test_torch_cylinder.py`): at lr 1e-2 the
-# group's f32 sums, taken in another order than the one-process step's,
-# move 22 tensors beyond this file's tolerance (up to 6.9x: batch-norm
-# biases of the VFE and the backbone), and so does the one-process step
-# alone, run again with every input feature and every parameter moved by
-# 1e-7 relative (`_moved`): 13 tensors, up to 3.4x. The two draws are
-# noise of one size; tensor by tensor the group stood at most 3.6x as far
-# as the control. So for the cases in CONTROLLED the control runs too, and
-# a tensor beyond the tolerance passes where it lies within CONTROL_FACTOR
-# times the control's distance from the one-process step (`_close`).
-# Every other case, Stage 2 on Cylinder3DRC included, holds the tolerance
-# at the full rate.
-CONTROLLED = ("cylinder",)
+# The Cylinder3D cases' control. At these sizes training-mode batch norm
+# makes their steps ill-conditioned (`test_torch_cylinder.py`). The trainer
+# at lr 1e-2: the group's f32 sums, taken in another order than the
+# one-process step's, move 22 tensors beyond this file's tolerance (up to
+# 6.9x: batch-norm biases of the VFE and the backbone), and so does the
+# one-process step alone, run again with every input feature and every
+# parameter moved by 1e-7 relative (`_moved`): 13 tensors, up to 3.4x;
+# tensor by tensor the group stood at most 3.6x as far as the control.
+# Stage 2 on Cylinder3DRC has two outcomes besides: its backbone's leaky
+# ReLU takes the slope of each conv output's sign, and about a thousand
+# outputs of a step's passes lie within 1e-6 of their channel's largest
+# magnitude, where rounding decides the sign (a control draw flips a dozen).
+# Most flips move little, but the draws fall on two branches: in the first
+# step's backward, the gradient at `encoder.down2.c0_1`'s conv output in
+# one of its two student passes lies 0.15 of its largest magnitude from the
+# one-process step's on one branch, 1.3e-3 on the other. On one x86 CPU the
+# group took the other branch than the one-process step: its second step had `mse` 0.0038215 against 0.0038149
+# (1.7e-3 relative, rtol 1e-5) and 82 state tensors up to 42x the
+# tolerance; on another it held the tolerance. Of 16 control draws, 9 took
+# the group's branch (`mse` 0.0038210-0.0038220) and 7 the one-process
+# step's (0.0038148-0.0038151).
+# So a case in CONTROL_DRAWS is held as every case is and, where that
+# misses, against control draws 0, 1, ... added one at a time up to its
+# count (`_held`): a state tensor beyond the tolerance passes where it lies
+# within CONTROL_FACTOR times the draws' largest distance from the
+# one-process step (`_close`), and for a case in CONTROLLED_METRICS so does
+# a float metric of a step after an update (`_check`). Each draw can only
+# widen the allowance, so the first count that passes gives the verdict of
+# all of them; with 8 draws and the branches as above, the chance that
+# every draw stays on the one-process step's branch is about 0.44^8, 1e-3.
+# The first step's metrics, the counts and the bit equality across ranks
+# hold as for every case.
+CONTROL_DRAWS = {"cylinder": 1, "cylinder3d": 8}
+CONTROLLED_METRICS = ("cylinder3d",)
 CONTROL_FACTOR = 8
 # Statistics that are 0 in exact arithmetic, so that both sides hold only
 # rounding: the running mean of Cylinder3DRC's first VFE batch norm, the
@@ -209,14 +230,15 @@ class _MinerLog:
 
 
 def _run_case(case: tuple, d: dict, group=None, rank: int = 0, world: int = 1,
-              control: bool = False) -> dict:
+              control: int | None = None) -> dict:
     """`STEPS` steps of one case from the state of seed 0: the one-process
     step (`group` None) or this rank's share of the group's; `control`: the
-    one-process step with every input feature and every parameter `_moved`
-    (student and teacher alike). Returns what the checks compare."""
+    draw (0, 1, ...) of the one-process step with every input feature and
+    every parameter `_moved` (student and teacher alike). Returns what the
+    checks compare."""
     family, kw = case[1], case[2]
-    if control:
-        rng = np.random.default_rng(11)
+    if control is not None:
+        rng = np.random.default_rng(11 + 10 * control)
         d = {k: dict(v, feats=_moved(v["feats"], rng)) if isinstance(v, dict) and "feats" in v
              else v for k, v in d.items()}
     sides = {k: _t(d[k]) for k in ("sup", "unsup", "sup2", "unsup2", "blobs")}
@@ -265,10 +287,10 @@ def _run_case(case: tuple, d: dict, group=None, rank: int = 0, world: int = 1,
             step = lambda: tcyl.cylinder_train_step(state, pts["cyl"], cfg, group=group)
         if group is not None:
             mesh.replicate(*models.values(), *extra, group=group)
-        if control:
+        if control is not None:
             with torch.no_grad():
                 for model in models.values():
-                    rng = np.random.default_rng(13)
+                    rng = np.random.default_rng(13 + 10 * control)
                     for p in model.parameters():
                         p.copy_(torch.as_tensor(_moved(p.detach().numpy(), rng)))
         for _ in range(STEPS):
@@ -297,35 +319,54 @@ def _worker(rank: int, world: int, tmp: str, cases: list, d: dict):
 
 def _run_cases(tmp, cases: list, d: dict) -> tuple:
     """The group's run of every case (one spawn; one result per rank) and,
-    while it runs, the one-process run of each here, and the control of
-    each case in CONTROLLED."""
+    while it runs, the one-process run of each here."""
     tmp = str(tmp)
     ctx = mp.start_processes(_worker, args=(WORLD, tmp, cases, d), nprocs=WORLD,
                              start_method="spawn", join=False)
     one = {case[0]: _run_case(case, d) for case in cases}
-    ctl = {case[0]: _run_case(case, d, control=True) for case in cases if case[0] in CONTROLLED}
     while not ctx.join():
         pass
-    return one, ctl, [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(WORLD)]
+    return one, [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(WORLD)]
 
 
-def _close(got, ref, ctl=None, what=""):
+def _held(case: tuple, d: dict, one: dict, ranks: list) -> None:
+    """`_check` of one case, and where it misses and the case is in
+    CONTROL_DRAWS, again with control draws 0, 1, ... added one at a time
+    up to its count; the last miss stands."""
+    name, ctl = case[0], []
+    while True:
+        try:
+            return _check(name, one, ranks, ctl or None)
+        except AssertionError:
+            if len(ctl) == CONTROL_DRAWS.get(name, 0):
+                raise
+            ctl.append(_run_case(case, d, control=len(ctl)))
+
+
+def _close(got, ref, ctls=None, what=""):
     """|got - ref| within 1e-4 of ref's largest magnitude (at least 1e-3), or,
-    given the control's tensor, within CONTROL_FACTOR times its largest
-    distance from ref."""
+    given the control draws' tensors, within CONTROL_FACTOR times their
+    largest distance from ref. A miss names the entries."""
     ref = ref.detach().float().numpy()
+    got = got.detach().float().numpy()
     atol = 1e-4 * max(float(np.abs(ref).max(initial=0)), 1e-3)
-    if ctl is not None:
-        spread = float(np.abs(ctl.detach().float().numpy() - ref).max(initial=0))
+    spread = None
+    if ctls is not None:
+        spread = max(float(np.abs(c.detach().float().numpy() - ref).max(initial=0)) for c in ctls)
         atol = max(atol, CONTROL_FACTOR * spread)
-    np.testing.assert_allclose(got.detach().float().numpy(), ref, rtol=0, atol=atol,
-                               err_msg=what)
+    bad = np.argwhere(~(np.abs(got - ref) <= atol))
+    assert not bad.size, (
+        f"{what}: {len(bad)} of {ref.size} entries beyond {atol!r} (controls' distance"
+        f" {spread!r}), at {bad[:8].tolist()}; first: {float(got[tuple(bad[0])])!r} against"
+        f" {float(ref[tuple(bad[0])])!r}")
 
 
-def _check(name: str, one: dict, ranks: list, ctl: dict | None = None) -> None:
+def _check(name: str, one: dict, ranks: list, ctl: list | None = None) -> None:
     """Every rank bit for bit rank 0; rank 0 against the one-process step:
     counts exact, float metrics, parameters, statistics and the queue within
-    the tolerances (the state's widened by a control run `ctl`, `_close`)."""
+    the tolerances (the state's widened by the control draws `ctl`, and for
+    a case in CONTROLLED_METRICS the metrics of the steps after an update
+    too)."""
     a, b = ranks
     for key in ("model", "student", "teacher"):
         for k, v in a.get(key, {}).items():
@@ -340,9 +381,14 @@ def _check(name: str, one: dict, ranks: list, ctl: dict | None = None) -> None:
         for k, v in m1.items():
             if k in COUNT_KEYS:
                 assert int(mg[k]) == int(v), (name, step, k, int(mg[k]), int(v))
-            else:
-                np.testing.assert_allclose(float(mg[k]), float(v), rtol=1e-5, atol=1e-6,
-                                           err_msg=f"{name} {step} {k}")
+                continue
+            tol, spread = 1e-6 + 1e-5 * abs(float(v)), None
+            if ctl is not None and step > 0 and name in CONTROLLED_METRICS:
+                spread = max(abs(float(c["metrics"][step][k]) - float(v)) for c in ctl)
+                tol = max(tol, CONTROL_FACTOR * spread)
+            assert abs(float(mg[k]) - float(v)) <= tol, (
+                f"{name} step {step} {k}: group {float(mg[k])!r}, one process {float(v)!r},"
+                f" tolerance {tol!r} (controls' distance {spread!r})")
         if "plan_overflow" in m1:
             assert int(m1["plan_overflow"]) == 0, name
     for who in ("model", "student", "teacher"):
@@ -350,10 +396,11 @@ def _check(name: str, one: dict, ranks: list, ctl: dict | None = None) -> None:
             if k in ZERO_STATS:
                 assert max(float(a[who][k].abs().max()), float(v.abs().max())) < 1e-6, k
             else:
-                _close(a[who][k], v, None if ctl is None else ctl[who][k],
+                _close(a[who][k], v, None if ctl is None else [c[who][k] for c in ctl],
                        what=f"{name} {who} {k}")
     if "queue" in one:
-        _close(a["queue"][0], one["queue"][0], what=f"{name} queue feats")
+        _close(a["queue"][0], one["queue"][0],
+               None if ctl is None else [c["queue"][0] for c in ctl], what=f"{name} queue feats")
         for i in (1, 2):
             assert torch.equal(a["queue"][i], one["queue"][i]), name
 
@@ -380,9 +427,9 @@ def test_stage2_variants_over_a_group_are_the_union_step(data, tmp_path):
                                                 cand_cap=256, queue_per_slot=64,
                                                 voxel_caps=CYL_CAPS, mix_voxel_caps=CYL_CAPS)),
     ]
-    one, ctl, ranks = _run_cases(tmp_path, cases, data)
-    for name, *_ in cases:
-        _check(name, one[name], [r[name] for r in ranks], ctl.get(name))
+    one, ranks = _run_cases(tmp_path, cases, data)
+    for case in cases:
+        _held(case, data, one[case[0]], [r[case[0]] for r in ranks])
     fired = {name: [int(m["has_novel"]) for m in one[name]["metrics"]] for name, *_ in cases}
     assert all(any(v) for v in fired.values()), fired
 
@@ -412,9 +459,9 @@ def test_other_families_over_a_group_are_the_union_step(data, tmp_path):
                                       point_cap=900, num_scans=2, steps_per_epoch=1,
                                       epochs=3, warmup_epochs=1)),
     ]
-    one, ctl, ranks = _run_cases(tmp_path, cases, data)
-    for name, *_ in cases:
-        _check(name, one[name], [r[name] for r in ranks], ctl.get(name))
+    one, ranks = _run_cases(tmp_path, cases, data)
+    for case in cases:
+        _held(case, data, one[case[0]], [r[case[0]] for r in ranks])
     for name in ("nops", "swav"):
         assert any(int(m["has_novel"]) for m in one[name]["metrics"]), name
     # the miner ran once a step on every rank; its mask, row for row, is the

@@ -247,44 +247,243 @@ def test_library_model_matches_jax(tplan_feats, goldens, name):
         _match(p.grad, goldens[f"{name}|grad|{k}"], GRAD_TOL, f"grad {k}")
 
 
+# ---- the heads in float64, with a bound on any f32 evaluation's distance
+
+U32 = 2.0 ** -24  # the unit roundoff of f32 (half its eps)
+LAMBDA = 8.0
+
+
+def _gamma(n: int) -> float:
+    """A bound on the relative rounding error of a sum of n terms: the worst
+    case n u / (1 - n u), or, where smaller (n above 64), Higham and Mary's
+    probabilistic exp(lambda sqrt(n) u + n u^2 / (1 - u)) - 1 (SIAM J. Sci.
+    Comput. 41(5), 2019), which fails with probability under
+    2 n exp(-lambda^2 (1 - u)^2 / 2) a dot product for independent
+    roundings: under 1e-6 over all of this test's at lambda 8."""
+    return float(min(n * U32 / (1 - n * U32),
+                     np.expm1(LAMBDA * np.sqrt(n) * U32 + n * U32 ** 2 / (1 - U32))))
+
+
+class _B:
+    """A value in float64 and a bound on how far an f32 evaluation of the
+    same operations lies from it: a first-order running error analysis
+    (Higham, *Accuracy and Stability of Numerical Algorithms*, 2nd ed.,
+    §3.1-3.5). Inputs, weights and cotangents are exact f32; a sum or dot
+    product of n terms, in any order, adds gamma_n times the sum of its
+    terms' magnitudes; any other operation adds U32 of its result. So the
+    bound of a dot product that cancels is large beside its value: at a row
+    whose embedding h is small against |x|·|W|, its normalisation carries
+    gamma_n |x|·|W| / ||h|| into every output of the row."""
+
+    def __init__(self, v, e=None):
+        self.v = np.asarray(v, np.float64)
+        self.e = np.zeros_like(self.v) if e is None else e
+
+    @property
+    def T(self):
+        return _B(self.v.T, self.e.T)
+
+
+def _round(v, e):
+    return _B(v, e + U32 * np.abs(v))
+
+
+def _mm(a, b):
+    av, bv = np.abs(a.v), np.abs(b.v)
+    return _B(a.v @ b.v, a.e @ bv + av @ b.e + a.e @ b.e + _gamma(a.v.shape[-1]) * (av @ bv))
+
+
+def _add(a, b):
+    return _round(a.v + b.v, a.e + b.e)
+
+
+def _mul(a, b):
+    return _round(a.v * b.v, a.e * np.abs(b.v) + np.abs(a.v) * b.e + a.e * b.e)
+
+
+def _scale(a, c: float):
+    return _round(c * a.v, abs(c) * a.e)
+
+
+def _sum(a, axis: int):
+    n = a.v.shape[axis]
+    return _B(a.v.sum(axis, keepdims=True),
+              a.e.sum(axis, keepdims=True) + _gamma(n) * np.abs(a.v).sum(axis, keepdims=True))
+
+
+def _div(a, b):
+    v = a.v / b.v
+    room = np.abs(b.v) - b.e  # b's least magnitude
+    return _round(v, np.where(room > 0, (a.e + np.abs(v) * b.e) / np.where(room > 0, room, 1),
+                              np.inf))
+
+
+def _relu(a):
+    return _B(np.maximum(a.v, 0.0), a.e)
+
+
+def _relu_grad(g, a):
+    """g where a > 0; where |a| is within its bound the mask may flip."""
+    live = a.v > 0
+    return _B(g.v * live, g.e * live + np.abs(g.v) * (np.abs(a.v) < a.e))
+
+
+def _norm(a, axis: int):
+    """max(||a||_2, 1e-12) along `axis`: |sqrt(s') - sqrt(s)| is at most
+    sqrt(|s' - s|) and |s' - s| / sqrt(s); the floor moves no error."""
+    s = _sum(_mul(a, a), axis)
+    r = np.sqrt(s.v)
+    e = np.minimum(np.sqrt(s.e), np.where(r > 0, s.e / np.where(r > 0, r, 1), np.inf))
+    return _B(np.maximum(r, 1e-12), e + U32 * r)
+
+
+def _normalize(a, axis: int = -1):
+    r = _norm(a, axis)
+    return _div(a, r), r
+
+
+def _normalize_grad(a, r, g, axis: int = -1):
+    """The gradient in `a` of sum(g * a / r), r = `_norm(a)`: through the
+    quotient, then through the norm where it is above its floor."""
+    d = _div(g, r)
+    dr = _div(_sum(_mul(g, a), axis), _mul(r, r))
+    through = _mul(dr, _div(a, r))
+    live = r.v > 1e-12
+    return _add(d, _B(-through.v * live, through.e * live))
+
+
+def _prototypes(p, pre, x):
+    k = p[pre + "prototypes.kernel"]
+    return _mm(x, k), lambda g: (_mm(g, k.T), {pre + "prototypes.kernel": _mm(x.T, g)})
+
+
+def _cosine(p, pre, x):
+    w = p[pre + "weight"]
+    xn, rx = _normalize(x)
+    wn, rw = _normalize(w)
+
+    def back(g):
+        g = _scale(g, 10.0)
+        return (_normalize_grad(x, rx, _mm(g, wn)),
+                {pre + "weight": _normalize_grad(w, rw, _mm(g.T, xn))})
+    return _scale(_mm(xn, wn.T), 10.0), back
+
+
+def _projection(p, pre, x):
+    acts, pre_acts = [x], []
+    for i in range(3):
+        z = _add(_mm(acts[-1], p[f"fc{i}.kernel"]), p[f"fc{i}.bias"])
+        pre_acts.append(z)
+        acts.append(_relu(z) if i < 2 else z)
+
+    def back(g):
+        grads = {}
+        for i in (2, 1, 0):
+            if i < 2:
+                g = _relu_grad(g, pre_acts[i])
+            grads[f"fc{i}.kernel"] = _mm(acts[i].T, g)
+            grads[f"fc{i}.bias"] = _sum(g, 0)
+            g = _mm(g, p[f"fc{i}.kernel"].T)
+        return g, grads
+    return acts[-1], back
+
+
+def _multi(unit, n):
+    def head(p, pre, x):
+        parts = [unit(p, f"head{h}.", x) for h in range(n)]
+
+        def back(g):
+            dx, grads = None, {}
+            for h, (_, b) in enumerate(parts):
+                dxh, gh = b(_B(g.v[h], g.e[h]))
+                dx = dxh if dx is None else _add(dx, dxh)
+                grads.update(gh)
+            return dx, grads
+        return _B(np.stack([o.v for o, _ in parts]), np.stack([o.e for o, _ in parts])), back
+    return head
+
+
+def _equiangular(p, pre, x):
+    k = p["embedding.kernel"]
+    z = _mm(x, k)
+    h = _relu(z)
+    hn, rh = _normalize(h)
+    mn, _ = _normalize(p["matrix"], 0)
+
+    def back(g):
+        dz = _relu_grad(_normalize_grad(h, rh, _mm(g, mn.T)), z)
+        return _mm(dz, k.T), {"embedding.kernel": _mm(x.T, dz)}
+    return _mm(hn, mn), back
+
+
+def _held(what, port, jx, ref):
+    """The port and JAX each within the oracle's bound of its value; the port
+    and JAX within 1e-6 of JAX's largest magnitude wherever the bound is
+    smaller than that, elsewhere within twice the bound."""
+    port = np.asarray(port.detach() if hasattr(port, "detach") else port, np.float64)
+    jx = np.asarray(jx, np.float64).reshape(port.shape)
+    v, b = ref.v.reshape(port.shape), ref.e.reshape(port.shape)
+    for side, got in (("port", port), ("JAX", jx)):
+        out = np.argwhere(~(np.abs(got - v) <= b))
+        assert not out.size, (
+            f"{what}: the {side} beyond the f64 oracle's bound at {out[:8].tolist()}"
+            f" ({out.shape[0]} places); first: {side} {float(got[tuple(out[0])])!r},"
+            f" oracle {float(v[tuple(out[0])])!r}, bound {float(b[tuple(out[0])])!r}")
+    floor = 1e-6 * max(float(np.abs(jx).max(initial=0)), 1e-6)
+    tol = np.where(b < floor, floor, 2 * b)
+    out = np.argwhere(~(np.abs(port - jx) <= tol))
+    assert not out.size, (f"{what}: port against JAX at {out[:8].tolist()} ({out.shape[0]} places);"
+                          f" first: port {float(port[tuple(out[0])])!r},"
+                          f" JAX {float(jx[tuple(out[0])])!r}, tolerance {float(tol[tuple(out[0])])!r}")
+
+
 def test_heads_match_jax():
     """Every head of `models.heads` on the same rows and weights: outputs
     (a zero row among the rows: the norms' floor) and the gradients of a
     cotangent in the inputs and parameters (on nonzero rows: at a zero row
-    the JAX norm's gradient is NaN, torch's 0); the equiangular matrix bit
-    for bit; the package exports the JAX package's names."""
+    the JAX norm's gradient is NaN, torch's 0), each side held to the heads
+    evaluated in float64 from the same weights within the oracle's bound
+    (`_B`), and to each other; the equiangular matrix bit for bit; the
+    package exports the JAX package's names."""
     rng = np.random.default_rng(2)
     xg = rng.standard_normal((40, 12)).astype(np.float32)
     x0 = xg.copy()
     x0[3] = 0.0
     cases = [
-        (jh.Prototypes(7), lambda: th.Prototypes(12, 7)),
-        (jh.CosinePrototypes(7), lambda: th.CosinePrototypes(12, 7)),
-        (jh.ProjectionHead(), lambda: th.ProjectionHead(12)),
-        (jh.MultiHead(5, 3), lambda: th.MultiHead(12, 5, 3)),
-        (jh.MultiHead(5, 2, cosine=True), lambda: th.MultiHead(12, 5, 2, cosine=True)),
-        (jh.EquiangularPrototypes(5, seed=3), lambda: th.EquiangularPrototypes(12, 5, seed=3)),
+        (jh.Prototypes(7), lambda: th.Prototypes(12, 7), _prototypes),
+        (jh.CosinePrototypes(7), lambda: th.CosinePrototypes(12, 7), _cosine),
+        (jh.ProjectionHead(), lambda: th.ProjectionHead(12), _projection),
+        (jh.MultiHead(5, 3), lambda: th.MultiHead(12, 5, 3), _multi(_prototypes, 3)),
+        (jh.MultiHead(5, 2, cosine=True), lambda: th.MultiHead(12, 5, 2, cosine=True),
+         _multi(_cosine, 2)),
+        (jh.EquiangularPrototypes(5, seed=3), lambda: th.EquiangularPrototypes(12, 5, seed=3),
+         _equiangular),
     ]
-    for i, (jhead, make) in enumerate(cases):
+    for i, (jhead, make, oracle) in enumerate(cases):
         params = _np_tree(jhead.init(jax.random.PRNGKey(i), jnp.asarray(xg))["params"])
         head = make()
         load = library_jax_to_state_dict({"h": params}, {})
         head.load_state_dict({k[2:]: torch.tensor(np.asarray(v)) for k, v in load.items()})
+        p64 = {k: _B(v.detach().numpy()) for k, v in head.state_dict(keep_vars=True).items()}
+        p64.update({k: _B(v.numpy()) for k, v in head.named_buffers()})
         with torch.no_grad():
-            _close(head(torch.as_tensor(x0)), jhead.apply({"params": params}, jnp.asarray(x0)),
-                   1e-6, f"head {i} zero row")
+            _held(f"head {i} zero row", head(torch.as_tensor(x0)),
+                  jhead.apply({"params": params}, jnp.asarray(x0)), oracle(p64, "", _B(x0))[0])
         cot = _cotangent(np.shape(jhead.apply({"params": params}, jnp.asarray(xg))), i)
         _, (jgp, jgx) = jax.value_and_grad(
             lambda p, xx: jnp.sum(jhead.apply({"params": p}, xx) * cot), argnums=(0, 1))(
                 params, jnp.asarray(xg))
+        ref, back = oracle(p64, "", _B(xg))
+        ref_dx, ref_grads = back(_B(cot))
         xt = torch.as_tensor(xg).requires_grad_()
         out = head(xt)
-        _close(out, jhead.apply({"params": params}, jnp.asarray(xg)), 1e-6, f"head {i}")
+        _held(f"head {i}", out, jhead.apply({"params": params}, jnp.asarray(xg)), ref)
         (out * torch.as_tensor(cot)).sum().backward()
-        _close(xt.grad, jgx, 1e-6, f"head {i} dx")
+        _held(f"head {i} dx", xt.grad, jgx, ref_dx)
         jgrad = library_jax_to_state_dict({"h": _np_tree(jgp)}, {})
+        assert set(ref_grads) == {k for k, _ in head.named_parameters()}
         for k, p in head.named_parameters():
-            _close(p.grad, jgrad[f"h.{k}"], 1e-6, f"head {i} {k}")
+            _held(f"head {i} d{k}", p.grad, jgrad[f"h.{k}"], ref_grads[k])
     np.testing.assert_array_equal(th._equiangular_matrix(48, 10, 4),
                                   jh._equiangular_matrix(48, 10, 4))
     from gcdlss_tpu import models as jmodels

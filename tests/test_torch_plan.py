@@ -340,8 +340,9 @@ def _level_keys(name):
     (uh, ul), _, _, _ = jc.sorted_unique(jh, jl, cap)
     th, tl = tc.encode_coords(torch.as_tensor(coords.reshape(-1, 4)), torch.as_tensor(valid))
     (kh, kl), _, _, _ = tc.sorted_unique(th, tl, cap)
-    _eq(uh, kh)
-    _eq(ul, kl)
+    for what, j, t in (("hi", uh, kh), ("lo", ul, kl)):
+        rows = np.flatnonzero(np.asarray(j) != t.numpy())
+        assert not rows.size, f"{name}: sorted unique keys ({what}) differ at rows {rows[:16].tolist()}"
     return uh, ul, kh, kl
 
 
@@ -354,11 +355,29 @@ def test_join_neighbor_map_matches_jax_on_adversarial_levels(name, k1):
     uh, ul, kh, kl = _level_keys(name)
     lvalid = uh != jc.SENTINEL_HI
     lcoords = jnp.where(lvalid[:, None], jc.decode_keys(uh, ul), 0)
-    ref = jp.build_neighbor_map(lcoords, lvalid, uh, ul, jp._offsets(k1))
+    ref = np.asarray(jp.build_neighbor_map(lcoords, lvalid, uh, ul, jp._offsets(k1)))
     got = tp.join_neighbor_map(kh, kl, k1)
     assert got.shape == (LEVELS[name][1], k1 ** 3) and got.dtype == torch.int32
-    _eq(ref, got)
-    _eq(ref, tpk.cube_neighbor_map(kh, kl, k1))  # the wrapper on CPU tensors
+    maps = {"join_neighbor_map": got.numpy(),
+            "cube_neighbor_map": tpk.cube_neighbor_map(kh, kl, k1).numpy()}  # the wrapper
+    assert all(np.array_equal(ref, m) for m in maps.values()), _map_report(ref, maps)
+
+
+def _map_report(ref, maps):
+    """Which of the port's maps differ from the JAX map, at which rows, and
+    whether the port's two maps agree with each other (then the JAX side is
+    the suspect)."""
+    lines = []
+    for what, m in maps.items():
+        rows = np.flatnonzero((m != ref).any(axis=1))
+        if rows.size:
+            r = rows[0]
+            lines.append(f"{what} differs from the JAX map at {rows.size} rows {rows[:16].tolist()};"
+                         f" row {r}: JAX {ref[r].tolist()}, port {m[r].tolist()}")
+    (a, b) = maps.values()
+    lines.append("the port's two maps agree" if np.array_equal(a, b) else
+                 f"the port's two maps differ at rows {np.flatnonzero((a != b).any(axis=1))[:16].tolist()}")
+    return "; ".join(lines)
 
 
 @pytest.mark.parametrize("k1", [3, 5])
