@@ -77,10 +77,17 @@ def _check_per_scan(dataset) -> None:
                         f"got {type(dataset).__module__}.{type(dataset).__name__}")
 
 
-def _prefetched(produce, prefetch: int):
+def _prefetched(produce, prefetch: int, loader):
     """Run `produce(put, stop)` in a thread and yield what it puts. An
     exception in the producer is raised here, not lost with its thread (which
-    would leave the consumer waiting for ever)."""
+    would leave the consumer waiting for ever). Each batch taken adds one to
+    `loader.taken`, and to `loader.empty_takes` if it was not ready when
+    asked for; the wait is the span `loader/get` on the consumer's thread
+    (the producer's threads open none)."""
+    # the data modules import no torch themselves (a spawned worker loads
+    # them); the consumer, a trainer, has it
+    from ..utils.logging import span
+
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
@@ -96,11 +103,19 @@ def _prefetched(produce, prefetch: int):
     threading.Thread(target=run, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with span("loader/get"):
+                try:
+                    item = q.get_nowait()
+                    ready = True
+                except queue.Empty:
+                    ready = False
+                    item = q.get()
             if item is None:
                 return
             if isinstance(item, BaseException):
                 raise item
+            loader.taken += 1
+            loader.empty_takes += not ready
             yield item
     finally:
         stop.set()
@@ -140,6 +155,8 @@ class PrefetchLoader:
         # to begin with, one more for each pass started
         self.epoch = epoch
         self.view = view
+        # batches handed out, and those that were not ready when asked for
+        self.taken = self.empty_takes = 0
 
     def __len__(self):
         n = len(self.dataset)
@@ -165,7 +182,7 @@ class PrefetchLoader:
                         lambda i: _fetch(self.dataset, i, epoch, self.view), idxs))
                     put(collate_batch(samples, self.voxel_cap, self.point_cap))
 
-        return _prefetched(produce, self.prefetch)
+        return _prefetched(produce, self.prefetch, self)
 
 
 class MultiprocessLoader:
@@ -211,6 +228,7 @@ class MultiprocessLoader:
         self.per_scan_seed = per_scan_seed
         self.epoch = epoch
         self.view = view
+        self.taken = self.empty_takes = 0
 
     def __len__(self):
         n = len(self.dataset)
@@ -254,7 +272,7 @@ class MultiprocessLoader:
                     samples = [f.result() for f in fb]
                     put(collate_batch(samples, self.voxel_cap, self.point_cap))
 
-        return _prefetched(produce, self.prefetch)
+        return _prefetched(produce, self.prefetch, self)
 
 
 def make_loader(dataset, batch_size, voxel_cap, *, backend: str = "thread",

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.logging import span
 from . import _build
 from .conv import gather_conv, gather_conv_backward
 
@@ -167,18 +168,20 @@ class SubmConvFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, nbr, w):
-        xk, wk, out_dtype = _kernel_operands(x.contiguous(), w)
-        ctx.save_for_backward(xk, nbr, wk)
-        ctx.out_dtype, ctx.w_dtype = out_dtype, w.dtype
-        return gather_gemm(xk, nbr, wk, out_dtype=out_dtype)
+        with span("conv/fwd"):
+            xk, wk, out_dtype = _kernel_operands(x.contiguous(), w)
+            ctx.save_for_backward(xk, nbr, wk)
+            ctx.out_dtype, ctx.w_dtype = out_dtype, w.dtype
+            return gather_gemm(xk, nbr, wk, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        xk, nbr, wk = ctx.saved_tensors
-        dx, dw = gather_gemm_backward(xk, g.to(xk.dtype).contiguous(), nbr, wk,
-                                      out_dtype=ctx.out_dtype, reverse=True,
-                                      need_dx=ctx.needs_input_grad[0])
-        return dx, None, dw.to(ctx.w_dtype)
+        with span("conv/bwd"):
+            xk, nbr, wk = ctx.saved_tensors
+            dx, dw = gather_gemm_backward(xk, g.to(xk.dtype).contiguous(), nbr, wk,
+                                          out_dtype=ctx.out_dtype, reverse=True,
+                                          need_dx=ctx.needs_input_grad[0])
+            return dx, None, dw.to(ctx.w_dtype)
 
 
 class PoolConvFn(torch.autograd.Function):
@@ -190,18 +193,21 @@ class PoolConvFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, nbr_fwd, nbr_adj, w, f32_sums=False):
-        xk, wk, out_dtype = _kernel_operands(x.contiguous(), w)
-        ctx.save_for_backward(xk, nbr_adj, wk)
-        ctx.out_dtype, ctx.w_dtype = out_dtype, w.dtype
-        return gather_gemm(xk, nbr_fwd, wk, out_dtype=torch.float32 if f32_sums else out_dtype)
+        with span("conv/fwd"):
+            xk, wk, out_dtype = _kernel_operands(x.contiguous(), w)
+            ctx.save_for_backward(xk, nbr_adj, wk)
+            ctx.out_dtype, ctx.w_dtype = out_dtype, w.dtype
+            return gather_gemm(xk, nbr_fwd, wk,
+                               out_dtype=torch.float32 if f32_sums else out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        xk, nbr_adj, wk = ctx.saved_tensors
-        dx, dw = gather_gemm_backward(xk, g.to(xk.dtype).contiguous(), nbr_adj, wk,
-                                      out_dtype=ctx.out_dtype,
-                                      need_dx=ctx.needs_input_grad[0])
-        return dx, None, None, dw.to(ctx.w_dtype), None
+        with span("conv/bwd"):
+            xk, nbr_adj, wk = ctx.saved_tensors
+            dx, dw = gather_gemm_backward(xk, g.to(xk.dtype).contiguous(), nbr_adj, wk,
+                                          out_dtype=ctx.out_dtype,
+                                          need_dx=ctx.needs_input_grad[0])
+            return dx, None, None, dw.to(ctx.w_dtype), None
 
 
 def _out_dtype(x: torch.Tensor) -> torch.dtype:

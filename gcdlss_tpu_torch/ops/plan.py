@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.logging import span
 from .coords import (FIELD, SENTINEL_HI, SENTINEL_LO, decode_keys, encode_coords,
                      sorted_unique, sorted_unique_nodup, sorted_unique_presorted)
 from .join import sorted_join, sorted_rank_match
@@ -177,47 +178,50 @@ def build_unet_plan(coords: torch.Tensor, valid: torch.Tensor, caps: tuple,
         dedup bookkeeping is skipped (`coords.sorted_unique_nodup`).
       plan_kernel: 2 builds the k^3 maps with K3, 1 with K4 (`neighbor_map`).
     """
-    hi, lo = encode_coords(coords, valid)
-    if presorted:
-        uniq0 = sorted_unique_presorted
-    elif assume_unique and caps[0] == coords.shape[0]:
-        uniq0 = sorted_unique_nodup
-    else:
-        uniq0 = sorted_unique
-    (kh, kl), rep, inverse, count = uniq0(hi, lo, caps[0])
+    with span("plan/unique"):
+        hi, lo = encode_coords(coords, valid)
+        if presorted:
+            uniq0 = sorted_unique_presorted
+        elif assume_unique and caps[0] == coords.shape[0]:
+            uniq0 = sorted_unique_nodup
+        else:
+            uniq0 = sorted_unique
+        (kh, kl), rep, inverse, count = uniq0(hi, lo, caps[0])
     dev = coords.device
 
     levels, pools = [], []
     stem_nbr = None
     for lev, cap in enumerate(caps):
-        lvalid = kh != SENTINEL_HI
-        lcoords = torch.where(lvalid[:, None], decode_keys(kh, kl), 0)
-        if lev == 0:
-            stem_nbr = neighbor_map(kh, kl, 5, plan_kernel)
-            # the 27 k = 3 offsets are the inner 3^3 cube of the 125 (z fastest)
-            nbr3 = stem_nbr.view(cap, 5, 5, 5)[:, 1:4, 1:4, 1:4].reshape(cap, 27)
-        else:
-            nbr3 = neighbor_map(kh, kl, 3, plan_kernel)
+        with span("plan/maps"):
+            lvalid = kh != SENTINEL_HI
+            lcoords = torch.where(lvalid[:, None], decode_keys(kh, kl), 0)
+            if lev == 0:
+                stem_nbr = neighbor_map(kh, kl, 5, plan_kernel)
+                # the 27 k = 3 offsets are the inner 3^3 cube of the 125 (z fastest)
+                nbr3 = stem_nbr.view(cap, 5, 5, 5)[:, 1:4, 1:4, 1:4].reshape(cap, 27)
+            else:
+                nbr3 = neighbor_map(kh, kl, 3, plan_kernel)
         levels.append(LevelPlan(lcoords, lvalid, count, nbr3, kh, kl))
         if lev + 1 == len(caps):
             break
-        # pool to the next level: parent = c >> 1 (stride units), dcode = c & 1
-        pcoord = torch.cat([lcoords[:, 0:1], lcoords[:, 1:4] >> 1], dim=1)
-        dbits = lcoords[:, 1:4] & 1
-        dcode = ((dbits[:, 0] << 2) | (dbits[:, 1] << 1) | dbits[:, 2]).to(torch.int32)
-        ph, pl = encode_coords(pcoord, lvalid)
-        (nh, nl), _, pinv, ncount = sorted_unique(ph, pl, caps[lev + 1])
-        capc = caps[lev + 1]
-        pok = lvalid & (pinv < capc)
-        rows_f = torch.arange(cap, dtype=torch.int32, device=dev)
-        # rows without a parent write one slot past the end, which is dropped
-        children = torch.full((capc * 8 + 1,), -1, dtype=torch.int32, device=dev)
-        children[torch.where(pok, pinv.long() * 8 + dcode, capc * 8)] = rows_f
-        children = children[:capc * 8]
-        slot = torch.arange(8, dtype=torch.int32, device=dev)[None, :]
-        upmap = torch.where(pok[:, None] & (dcode[:, None] == slot), pinv[:, None], -1)
-        pools.append(PoolPlan(pinv, dcode, children.reshape(capc, 8),
-                              upmap.to(torch.int32)))
+        with span("plan/pool"):
+            # pool to the next level: parent = c >> 1 (stride units), dcode = c & 1
+            pcoord = torch.cat([lcoords[:, 0:1], lcoords[:, 1:4] >> 1], dim=1)
+            dbits = lcoords[:, 1:4] & 1
+            dcode = ((dbits[:, 0] << 2) | (dbits[:, 1] << 1) | dbits[:, 2]).to(torch.int32)
+            ph, pl = encode_coords(pcoord, lvalid)
+            (nh, nl), _, pinv, ncount = sorted_unique(ph, pl, caps[lev + 1])
+            capc = caps[lev + 1]
+            pok = lvalid & (pinv < capc)
+            rows_f = torch.arange(cap, dtype=torch.int32, device=dev)
+            # rows without a parent write one slot past the end, which is dropped
+            children = torch.full((capc * 8 + 1,), -1, dtype=torch.int32, device=dev)
+            children[torch.where(pok, pinv.long() * 8 + dcode, capc * 8)] = rows_f
+            children = children[:capc * 8]
+            slot = torch.arange(8, dtype=torch.int32, device=dev)[None, :]
+            upmap = torch.where(pok[:, None] & (dcode[:, None] == slot), pinv[:, None], -1)
+            pools.append(PoolPlan(pinv, dcode, children.reshape(capc, 8),
+                                  upmap.to(torch.int32)))
         kh, kl, count = nh, nl, ncount
 
     return UNetPlan(tuple(levels), tuple(pools), stem_nbr, rep, inverse)

@@ -11,26 +11,22 @@ on voxel buffers made once on the card, it prints:
   - the step time with K3 maps (`plan_kernel=2`) and K4 maps (`plan_kernel=1`),
     after 3 warm-up steps, in 3 interleaved rounds 2/1/1/2 (host clock around
     a step that ends reading its metrics), and the peak memory;
-  - each `record_function` span of the step, with the card synchronized
-    around every span (5 steps, medians);
   - the student's fwd+bwd on the combined and on the mixed plan alone (one CE
     loss each), the teacher forward alone, and `plan_and_gather` per route;
-  - one step under `torch.profiler`: the device time summed over the trace's
-    kernel, memcpy and memset events, the busy time (their union) and the
-    idle share of the step's host wall time, and the kernels by device time
-    (the port's own kernels summed over their template instances).
-    The trace is written to `--trace`;
+  - one step under `torch.profiler`, written as a Chrome trace to `--trace`;
   - the Stage-1 step (`pretrain_train_step`, MinkUNet34, the labeled side's 2
     scans, cap0 = 138,240): median of 5 after 2 warm-ups, peak memory, and one
-    step under the profiler, summarised the same way.
+    step under the profiler, written beside it.
+
+The split of a step by span and kernel, its idle gaps and the per-layer
+metrics come from the benchmark's traced run (`benchmark/run.py --trace 1`),
+which reads the port's spans (`utils.logging.span`) on the device's clock.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import re
 import statistics
 import subprocess
 import time
@@ -38,8 +34,6 @@ from collections import defaultdict
 from pathlib import Path
 
 import torch
-
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def log(*args):
@@ -69,36 +63,6 @@ def synthetic_sides(device):
     unsup["coords"][:, 0] -= cs.BATCH
     unsup["coords"] = torch.where(unsup["valid"][:, None], unsup["coords"], 0)
     return sup, unsup
-
-
-OWN_KERNEL = re.compile(r"(gather_\w+|sum_slices_kernel|cube_\w+)")
-
-
-def device_summary(trace: Path, wall_ms: float) -> None:
-    """Sum the device events of a chrome trace; their union is the busy time.
-    The port's kernels are listed by function, whatever their template
-    arguments."""
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    total = sum(e["dur"] for e in events) / 1e3
-    busy, end = 0.0, float("-inf")
-    for e in sorted(events, key=lambda e: e["ts"]):
-        s, t = e["ts"], e["ts"] + e["dur"]
-        if t > end:
-            busy += t - max(s, end)
-            end = t
-    busy /= 1e3
-    log(f"profiled step: wall {wall_ms:.1f} ms; device events {len(events)}, "
-        f"summed {total:.1f} ms, busy (union) {busy:.1f} ms, idle share "
-        f"{1 - busy / wall_ms:.4f} of the wall")
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        own = OWN_KERNEL.search(e["name"])
-        name = own.group(1) if own else e["name"]
-        by_name[name][0] += e["dur"] / 1e3
-        by_name[name][1] += 1
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
-        log(f"  {ms:9.2f} ms {100 * ms / total:5.1f}%  n={n:5d}  {name[:90]}")
 
 
 def main() -> int:
@@ -152,25 +116,6 @@ def main() -> int:
         log(f"step ms plan_kernel={pk}: median {statistics.median(ts):.1f} "
             f"all {[round(t, 1) for t in ts]}")
 
-    spans = defaultdict(list)
-
-    @contextlib.contextmanager
-    def timed(name):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        yield
-        torch.cuda.synchronize()
-        spans[name].append((time.perf_counter() - t) * 1e3)
-
-    record_function, torch.profiler.record_function = torch.profiler.record_function, timed
-    try:
-        ts, _ = steps(2, 5)
-    finally:
-        torch.profiler.record_function = record_function
-    log(f"step ms with synchronized spans: median {statistics.median(ts):.1f}")
-    for name, v in spans.items():
-        log(f"  span {name}: median {statistics.median(v):.2f} ms")
-
     def med_ms(fn, n=5):
         fn()
         v = []
@@ -208,14 +153,11 @@ def main() -> int:
 
     def profiled(step, trace: Path) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             step()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
-        device_summary(trace, wall)
+        log(f"profiled step written to {trace}")
 
     log("Stage 2:")
     profiled(lambda: td.discover_train_step(state, sup, unsup, cfgs[2]), args.trace)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops.plan import build_unet_plan
+from ..utils.logging import span
 
 
 def default_caps(n0: int) -> tuple:
@@ -84,29 +85,40 @@ class StepClock:
         return [c[0].elapsed_time(c[1]) if self.on_card else c for c in self.clocks]
 
 
+def _host_bytes(arrays) -> int:
+    """Bytes of the host (NumPy) arrays among `arrays`."""
+    return sum(a.nbytes for a in arrays if isinstance(a, np.ndarray))
+
+
 def voxel_batch_to_device(vb, device) -> dict:
-    """VoxelBatchNp -> dict of tensors on `device`."""
+    """VoxelBatchNp -> dict of tensors on `device`. `voxel_batch_to_device.bytes`
+    counts the bytes of the host arrays handed over (on the card, the bytes
+    copied host to device)."""
     out = {
-        "coords": torch.as_tensor(vb.coords, device=device),
-        "feats": torch.as_tensor(vb.feats, device=device),
-        "labels": torch.as_tensor(vb.labels, device=device),
-        "mapped_labels": torch.as_tensor(vb.mapped_labels, device=device),
-        "valid": torch.as_tensor(vb.valid, device=device),
+        "coords": vb.coords, "feats": vb.feats, "labels": vb.labels,
+        "mapped_labels": vb.mapped_labels, "valid": vb.valid,
     }
     if getattr(vb, "point_ids", None) is not None:
-        out["point_ids"] = torch.as_tensor(vb.point_ids, device=device)
-    return out
+        out["point_ids"] = vb.point_ids
+    voxel_batch_to_device.bytes += _host_bytes(out.values())
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+voxel_batch_to_device.bytes = 0
 
 
 def point_batch_to_device(pb, device) -> dict:
-    return {
-        "xyz": torch.as_tensor(pb.xyz, device=device),
-        "feats": torch.as_tensor(pb.feats, device=device),
-        "labels": torch.as_tensor(pb.labels, device=device),
-        "mapped_labels": torch.as_tensor(pb.mapped_labels, device=device),
-        "valid": torch.as_tensor(pb.valid, device=device),
-        "voxel_row": torch.as_tensor(pb.voxel_row, device=device),
+    """PointBatchNp -> dict of tensors on `device`; `point_batch_to_device.bytes`
+    counts as `voxel_batch_to_device.bytes` does."""
+    out = {
+        "xyz": pb.xyz, "feats": pb.feats, "labels": pb.labels,
+        "mapped_labels": pb.mapped_labels, "valid": pb.valid, "voxel_row": pb.voxel_row,
     }
+    point_batch_to_device.bytes += _host_bytes(out.values())
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+point_batch_to_device.bytes = 0
 
 
 def plan_and_gather(batch: dict, caps: tuple, plan_kernel: int = 2):
@@ -116,12 +128,13 @@ def plan_and_gather(batch: dict, caps: tuple, plan_kernel: int = 2):
     plan's level-0 row i."""
     plan = build_unet_plan(batch["coords"], batch["valid"], caps, presorted=True,
                            plan_kernel=plan_kernel)
-    n = batch["coords"].shape[0]
-    ok = plan.rep < n
-    safe = torch.where(ok, plan.rep, 0).long()
-    feats0 = batch["feats"][safe] * ok[:, None].to(batch["feats"].dtype)
-    labels0 = torch.where(ok, batch["labels"][safe], -1)
-    mapped0 = torch.where(ok, batch["mapped_labels"][safe], -1)
+    with span("plan/gather"):
+        n = batch["coords"].shape[0]
+        ok = plan.rep < n
+        safe = torch.where(ok, plan.rep, 0).long()
+        feats0 = batch["feats"][safe] * ok[:, None].to(batch["feats"].dtype)
+        labels0 = torch.where(ok, batch["labels"][safe], -1)
+        mapped0 = torch.where(ok, batch["mapped_labels"][safe], -1)
     return plan, feats0, labels0, mapped0
 
 

@@ -57,6 +57,7 @@ from ..ops.voxelize import sparse_quantize
 from ..parallel.mesh import (all_reduce, all_reduce_grads, all_reduce_metrics,
                              gather_candidates, global_rows, raise_if_dropped,
                              raise_if_union_over, rank_config, rank_of, rank_share, union_rows)
+from ..utils.logging import span
 from .common import make_sgd, plan_and_gather, resolve_device
 from .feature_mixing import draw_perms, mix_features
 from .lasermix import NUM_AREAS_CHOICES, lasermix_batch, lasermix_voxel_groups
@@ -455,7 +456,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
     teacher.train()
 
     # ---- combined sup + unsup plan ----
-    with torch.profiler.record_function("discover/plan"):
+    with span("discover/plan"):
         plan, feats0, _, mapped0 = plan_and_gather(_combine_batches(sup_vb, unsup_vb, lcfg),
                                                    lcfg.voxel_caps, cfg.plan_kernel)
     n_in = sup_vb["coords"].shape[0] + unsup_vb["coords"].shape[0]
@@ -467,7 +468,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
     cap0 = lcfg.voxel_caps[0]
 
     # ---- teacher forward: train-mode BN, its statistics become the teacher's ----
-    with torch.no_grad(), torch.profiler.record_function("discover/teacher"):
+    with torch.no_grad(), span("discover/teacher"):
         out_t, ovf_t = apply(teacher, plan, feats0, "main")
         dummy_t = assemble_dummy_logits(out_t)
         feats_t = out_t["feats"]
@@ -477,7 +478,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
     # ---- LaserMix plan from the teacher's pseudo labels ----
     mix_plan = None
     if cfg.mix_mode == "lasermix":
-        with torch.no_grad(), torch.profiler.record_function("discover/mix_plan"):
+        with torch.no_grad(), span("discover/mix_plan"):
             mix_plan, mix_feats0, mix_labels0 = mixed_plan(
                 lcfg, plan, feats0, mapped0, is_sup, unsup_mask, maxp_t, argm_t,
                 draws["num_areas"], sup_pb, unsup_pb, group)
@@ -485,7 +486,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
         return mix_plan
 
     # ---- NCC candidate mining and the novel assignment (teacher side, no grad) ----
-    with torch.no_grad(), torch.profiler.record_function("discover/mining"):
+    with torch.no_grad(), span("discover/mining"):
         cand_mask = candidate_mask(cfg, dummy_t, probs_t, state.tau, unsup_mask)
         n_cand = all_reduce(cand_mask.sum().to(torch.int32), group)
         cand_cap = _cand_cap(cfg)
@@ -517,7 +518,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
                 draws["kmeans_scores"])
 
     # ---- student forwards, one loss, one backward ----
-    with torch.profiler.record_function("discover/student_main_fwd"):
+    with span("discover/student_main_fwd"):
         out_s, ovf_s = apply(student, plan, feats0, "main")
         dummy_s = assemble_dummy_logits(out_s)
         feats_s = out_s["feats"]
@@ -525,7 +526,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
         l_sup = cross_entropy(dummy_s, sup_targets, valid0, group=group)
         l_mse = cfg.mse_coeff * mse_prob_loss(torch.softmax(dummy_s, dim=-1), probs_t,
                                               unsup_mask, group=group)
-    with torch.profiler.record_function("discover/student_mix_fwd"):
+    with span("discover/student_mix_fwd"):
         if cfg.mix_mode == "lasermix":
             out_mix, ovf_m = apply(student, mix_plan, mix_feats0, "mix")
             dummy_mix = assemble_dummy_logits(out_mix)
@@ -547,7 +548,7 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
             l_lm = cfg.lasermix_coeff * soft_cross_entropy(mix_logits, mixp, mixok, group=group)
         else:
             l_lm = torch.zeros((), device=valid0.device)
-    with torch.profiler.record_function("discover/losses"):
+    with span("discover/losses"):
         if cfg.use_lion:
             # LiON: the Gambler and energy-margin losses in f32, in place of
             # the calibration loss
@@ -584,13 +585,13 @@ def _train_step(state, sup_vb, unsup_vb, cfg, lcfg, draws, sup_pb, unsup_pb, gro
             torch.where(own_rel, cfg.unknown_label, -1), group=group)
         loss = l_sup + l_mse + l_lm + l_cal + l_thr + g * (l_nov_unsup + l_nov_sup + l_ncc)
 
-    with torch.profiler.record_function("discover/backward"):
+    with span("discover/backward"):
         lr = make_lr_schedule(cfg)(state.step)
         for pg in state.optimizer.param_groups:
             pg["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-    with torch.no_grad(), torch.profiler.record_function("discover/update"):
+    with torch.no_grad(), span("discover/update"):
         all_reduce_grads([*student.parameters(), state.tau], group)
         state.optimizer.step()
         # EMA teacher over the parameters only: t <- (1 - m) t + m s

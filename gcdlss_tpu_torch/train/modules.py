@@ -22,10 +22,13 @@ import torch
 from ..data import PrefetchLoader, collate_batch
 from ..eval.metrics import discovery_iou
 from ..models.minkunet import assemble_novel_logits
+from ..utils.logging import span
 from .common import (StepClock, inv_label_lut, plan_and_gather, point_batch_to_device,
                      resolve_device, voxel_batch_to_device)
 from .discover import (DiscoverConfig, create_discover_state, discover_eval_step,
                        discover_train_step)
+
+_END = object()  # an iterator's end, where a batch would be
 
 
 class ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive:
@@ -68,26 +71,41 @@ class ExpMergeDiscoverLaserMixMeanTeacherNCCAdaptive:
         return lab, unlab
 
     def train_epoch(self, lab_loader, unlab_loader) -> dict:
-        """One pass over the paired loaders; returns the mean of each metric."""
-        logs = [self.train_step(sup, unsup) for sup, unsup in zip(lab_loader, unlab_loader)]
+        """One pass over the paired loaders; returns the mean of each metric.
+        Each step takes the labeled batch first and ends the pass without
+        taking an unlabeled one when the labeled side has ended (`zip`'s
+        order)."""
+        logs = []
+        labeled, unlabeled = iter(lab_loader), iter(unlab_loader)
+        while True:
+            with span("step/fetch"):
+                sup = next(labeled, _END)
+                unsup = _END if sup is _END else next(unlabeled, _END)
+            if unsup is _END:
+                break
+            logs.append(self.train_step(sup, unsup))
         if not logs:
             return {}
         return {k: float(np.mean([m[k] for m in logs])) for k in logs[0]}
 
     def train_step(self, sup_batch, unsup_batch) -> dict:
-        t0 = time.perf_counter()
-        clock = StepClock(self.device)
-        clock.start()
-        dev = self.device
-        self.state, metrics = discover_train_step(
-            self.state, voxel_batch_to_device(sup_batch["voxel"], dev),
-            voxel_batch_to_device(unsup_batch["voxel"], dev), self.cfg,
-            sup_pb=point_batch_to_device(sup_batch["points"], dev),
-            unsup_pb=point_batch_to_device(unsup_batch["points"], dev))
-        clock.stop()
-        out = {k: float(v) for k, v in metrics.items()}
-        self.step_log.append({**out, "seconds": time.perf_counter() - t0,
-                              "step_ms": clock.ms()[0]})
+        with span("step"):
+            t0 = time.perf_counter()
+            clock = StepClock(self.device)
+            clock.start()
+            dev = self.device
+            with span("step/to_device"):
+                sup_vb = voxel_batch_to_device(sup_batch["voxel"], dev)
+                unsup_vb = voxel_batch_to_device(unsup_batch["voxel"], dev)
+                sup_pb = point_batch_to_device(sup_batch["points"], dev)
+                unsup_pb = point_batch_to_device(unsup_batch["points"], dev)
+            self.state, metrics = discover_train_step(self.state, sup_vb, unsup_vb, self.cfg,
+                                                      sup_pb=sup_pb, unsup_pb=unsup_pb)
+            clock.stop()
+            with span("step/read"):
+                out = {k: float(v) for k, v in metrics.items()}
+            self.step_log.append({**out, "seconds": time.perf_counter() - t0,
+                                  "step_ms": clock.ms()[0]})
         return out
 
     def validate(self, val_dataset, num_workers: int = 4, point_cap: int | None = None) -> dict:

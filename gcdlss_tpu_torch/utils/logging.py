@@ -1,10 +1,10 @@
-"""Observability: metric logging, per-step timing, profiler traces
+"""Observability: metric logging, profiler traces and the port's named spans
 (PyTorch port of `gcdlss_tpu/utils/logging.py`).
 
 `MetricsLogger` writes JSONL always and TensorBoard event files when
-`torch.utils.tensorboard` imports; `StepTimer` times steps by CUDA events on
-the card (device time, not the host clock) and by the host clock on the CPU;
-`profile_trace` captures a `torch.profiler` trace into a directory.
+`torch.utils.tensorboard` imports; `profile_trace` captures a
+`torch.profiler` trace into a directory; `span` names a stretch of host work
+in such a trace. A step's own time is `train.common.StepClock`'s.
 """
 
 from __future__ import annotations
@@ -12,11 +12,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import time
 from collections import defaultdict
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 
 class MetricsLogger:
@@ -59,47 +59,6 @@ class MetricsLogger:
             self._tb.close()
 
 
-class StepTimer:
-    """Step timing with a warm-up skip. On a CUDA device the time of a step is
-    the device time between two events recorded on the current stream
-    (`stop` waits for the second); elsewhere the host clock. Seconds."""
-
-    def __init__(self, warmup: int = 2, device=None):
-        self.warmup = warmup
-        self.on_card = device is not None and torch.device(device).type == "cuda"
-        self.times: list = []
-        self._t0 = None
-        self._n = 0
-
-    def start(self):
-        if self.on_card:
-            self._t0 = torch.cuda.Event(enable_timing=True)
-            self._t0.record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        if self.on_card:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            end.synchronize()
-            dt = self._t0.elapsed_time(end) * 1e-3
-        else:
-            dt = time.perf_counter() - self._t0
-        self._n += 1
-        if self._n > self.warmup:
-            self.times.append(dt)
-        return dt
-
-    @property
-    def mean(self):
-        return float(np.mean(self.times)) if self.times else float("nan")
-
-    @property
-    def p50(self):
-        return float(np.median(self.times)) if self.times else float("nan")
-
-
 @contextlib.contextmanager
 def profile_trace(log_dir: str, name: str = "trace.json"):
     """Capture a `torch.profiler` trace (host and, where there is one, CUDA
@@ -112,3 +71,18 @@ def profile_trace(log_dir: str, name: str = "trace.json"):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, name))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The port's one way to name a stretch of host work: while a
+    `torch.profiler` records, `record_function(name)`, which the trace puts on
+    the clock of the device's events (a kernel belongs to the span its launch
+    falls in); otherwise one shared null context, so that an untraced step
+    reads a flag and enters no `RecordFunction`. A span times nothing itself:
+    it neither waits for the device nor reads a tensor."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN

@@ -82,16 +82,25 @@ def stage1(tree):
 # ------------------------------------------------------------ configuration
 
 
-@pytest.mark.parametrize("path", JAX_CONFIGS, ids=lambda p: p.name)
-def test_port_yaml_is_a_copy_read_alike(path):
+def test_port_yaml_is_a_copy_read_alike():
     """The port's copy of each file holds the same values as the JAX
-    package's, and `load_config` gives the same ExperimentConfig from it."""
-    mine = tconfig.CONFIG_DIR / path.name
-    assert tconfig.read_flat_yaml(mine) == yaml.safe_load(path.read_text())
-    assert tconfig.read_flat_yaml(mine) == yaml.safe_load(mine.read_text())
-    got = dataclasses.asdict(tconfig.load_config(str(mine), experiment="x"))
-    want = dataclasses.asdict(jconfig.load_config(str(path), experiment="x"))
-    assert got == want
+    package's, and `load_config` gives the same ExperimentConfig from it.
+    The four files are one item (the suite's count of items is held, see
+    ROADMAP "Test budget"); a failure names every file that differs, and how."""
+    assert len(JAX_CONFIGS) == 4
+    wrong = []
+    for path in JAX_CONFIGS:
+        mine = tconfig.CONFIG_DIR / path.name
+        flat = tconfig.read_flat_yaml(mine)
+        if flat != yaml.safe_load(path.read_text()):
+            wrong.append(f"{path.name}: values differ from the JAX package's")
+        if flat != yaml.safe_load(mine.read_text()):
+            wrong.append(f"{path.name}: read unlike yaml")
+        got = dataclasses.asdict(tconfig.load_config(str(mine), experiment="x"))
+        want = dataclasses.asdict(jconfig.load_config(str(path), experiment="x"))
+        if got != want:
+            wrong.append(f"{path.name}: ExperimentConfig differs")
+    assert wrong == []
 
 
 def test_port_configs_are_the_four_files():
@@ -252,7 +261,7 @@ def test_pretrained_handoff_round_trip(tmp_path):
 
 
 def test_metrics_logger_timer_and_trace(tmp_path):
-    from gcdlss_tpu_torch.utils.logging import MetricsLogger, StepTimer, profile_trace
+    from gcdlss_tpu_torch.utils.logging import MetricsLogger, profile_trace
 
     log = MetricsLogger(str(tmp_path), "run")
     log.log("a", torch.tensor(2.5), 0, on_epoch=True)
@@ -265,11 +274,6 @@ def test_metrics_logger_timer_and_trace(tmp_path):
     rows = [json.loads(x) for x in (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()]
     assert rows[0] == {"tag": "a", "value": 2.5, "step": 0}
     assert {"tag": "a_epoch", "value": 3.5, "step": 0} in rows
-    timer = StepTimer(warmup=1, device="cpu")
-    for _ in range(3):
-        timer.start()
-        timer.stop()
-    assert len(timer.times) == 2 and timer.p50 >= 0 and not timer.on_card
     with profile_trace(str(tmp_path / "trace")):
         torch.ones(4).sum()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
