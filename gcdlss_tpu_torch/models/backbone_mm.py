@@ -90,18 +90,18 @@ class MinkUNetBackboneMM(nn.Module):
         x = feats.to(self.dtype)
         for s in range(2):
             x = getattr(self, f"conv_input{s}")(x, lv[0].nbr3, lv[0].valid)
-            x = torch.relu(getattr(self, f"bn_input{s}")(x, lv[0].valid))
+            x = getattr(self, f"bn_input{s}")(x, lv[0].valid, act="relu")
         laterals = [x]
         for i in range(self.n_stages):
             x = getattr(self, f"enc{i}_down")(x, pools[i], lv[i + 1].valid)
-            x = torch.relu(getattr(self, f"enc{i}_bn")(x, lv[i + 1].valid))
+            x = getattr(self, f"enc{i}_bn")(x, lv[i + 1].valid, act="relu")
             x = getattr(self, f"enc{i}_blocks")(x, lv[i + 1].nbr3, lv[i + 1].valid)
             laterals.append(x)
         laterals = laterals[:-1][::-1]
         for i in range(self.n_stages):
             lvl = self.n_stages - 1 - i  # target level (3, 2, 1, 0)
             x = getattr(self, f"dec{i}_up")(x, pools[lvl], lv[lvl].valid)
-            x = torch.relu(getattr(self, f"dec{i}_bn")(x, lv[lvl].valid))
+            x = getattr(self, f"dec{i}_bn")(x, lv[lvl].valid, act="relu")
             x = torch.cat([x, laterals[i]], dim=1)
             x = getattr(self, f"dec{i}_blocks")(x, lv[lvl].nbr3, lv[lvl].valid)
         return x  # [cap0, decoder_channels[-1] x expansion]

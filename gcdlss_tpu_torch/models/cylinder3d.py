@@ -313,7 +313,7 @@ class SegVFE(nn.Module):
         for i in range(self.n):
             h = getattr(self, f"vfe{i}")(h)
             if i < self.n - 1:
-                h = torch.relu(getattr(self, f"vfe{i}_bn")(h, in_range))
+                h = getattr(self, f"vfe{i}_bn")(h, in_range, act="relu")
         vox = dynamic_scatter(h, coords, in_range, voxel_cap, mode="max")
         vfeats = torch.relu(self.compress(vox["feats"]))
         return {"feats": mask_rows(vfeats, vox["valid"]), "coords": vox["coords"],

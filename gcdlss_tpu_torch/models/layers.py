@@ -22,8 +22,8 @@ import math
 import torch
 from torch import nn
 
-from ..ops.conv import masked_batch_norm_stats
 from ..ops.fused_conv import pool_conv, subm_conv
+from ..ops.fused_norm import sparse_batch_norm
 from ..parallel.voxel_shard import (WindowBook, WindowPool, sp_down_conv, sp_gather_conv,
                                     sp_up_conv)
 
@@ -126,7 +126,8 @@ class SparseBatchNorm(nn.Module):
 
     Normalizes with the biased batch variance; `running_var` stores the
     unbiased estimate, as `torch.nn.BatchNorm1d` inside `MinkowskiBatchNorm`.
-    Statistics and the affine map are f32; the output has x's dtype."""
+    Statistics and the affine map are f32; the output has x's dtype. A
+    caller may fold in the residual add and the ReLU that follow the norm."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -137,19 +138,12 @@ class SparseBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x, valid):
-        if self.training:
-            mean, var, cnt = masked_batch_norm_stats(x.float(), valid, _STATS_GROUP)
-            if not _FROZEN_STATS:
-                with torch.no_grad():
-                    unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
-                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
-        else:
-            mean, var = self.running_mean, self.running_var
-        scale = torch.rsqrt(var + self.eps) * self.weight
-        out = (x.float() - mean) * scale + self.bias
-        return mask_rows(out.to(x.dtype), valid)
+    def forward(self, x, valid, residual=None, act: str = "none"):
+        """`act(norm(x) + residual)` on the valid rows, zero elsewhere
+        (`ops.fused_norm.sparse_batch_norm`: the kernels on the card)."""
+        return sparse_batch_norm(x, valid, self.weight, self.bias, self.running_mean,
+                                 self.running_var, self.training, self.momentum, self.eps,
+                                 residual, act, _STATS_GROUP, not _FROZEN_STATS)
 
 
 class Linear(nn.Module):

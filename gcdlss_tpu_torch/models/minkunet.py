@@ -79,13 +79,12 @@ class BasicBlock(nn.Module):
             ])
 
     def forward(self, x, nbr, valid):
-        out = torch.relu(self.norm1(self.conv1(x, nbr, valid), valid))
-        out = self.norm2(self.conv2(out, nbr, valid), valid)
+        out = self.norm1(self.conv1(x, nbr, valid), valid, act="relu")
         residual = x
         if self.downsample is not None:
             proj, norm = self.downsample
             residual = norm(proj(x), valid)
-        return mask_rows(torch.relu(out + residual), valid)
+        return self.norm2(self.conv2(out, nbr, valid), valid, residual, act="relu")
 
 
 class Bottleneck(nn.Module):
@@ -113,14 +112,13 @@ class Bottleneck(nn.Module):
             ])
 
     def forward(self, x, nbr, valid):
-        out = torch.relu(self.norm1(self.conv1(x), valid))
-        out = torch.relu(self.norm2(self.conv2(out, nbr, valid), valid))
-        out = self.norm3(self.conv3(out), valid)
+        out = self.norm1(self.conv1(x), valid, act="relu")
+        out = self.norm2(self.conv2(out, nbr, valid), valid, act="relu")
         residual = x
         if self.downsample is not None:
             proj, norm = self.downsample
             residual = norm(proj(x), valid)
-        return mask_rows(torch.relu(out + residual), valid)
+        return self.norm3(self.conv3(out), valid, residual, act="relu")
 
 
 BLOCKS = {"basic": (BasicBlock, 1), "bottleneck": (Bottleneck, Bottleneck.EXPANSION)}
@@ -192,19 +190,19 @@ class MinkUNetBackbone(nn.Module):
     def forward(self, plan, feats):
         lv, pools = plan.levels, plan.pools
         x = self.conv0p1s1(feats.to(self.dtype), plan.stem_nbr, lv[0].valid)
-        x = torch.relu(self.bn0(x, lv[0].valid))
+        x = self.bn0(x, lv[0].valid, act="relu")
         skips = [x]
         for i in range(4):
             down = getattr(self, f"conv{i + 1}p{2 ** i}s2")
             x = down(x, pools[i], lv[i + 1].valid)
-            x = torch.relu(getattr(self, f"bn{i + 1}")(x, lv[i + 1].valid))
+            x = getattr(self, f"bn{i + 1}")(x, lv[i + 1].valid, act="relu")
             x = getattr(self, f"block{i + 1}")(x, lv[i + 1].nbr3, lv[i + 1].valid)
             skips.append(x)
         for j in range(4):
             lvl = 3 - j
             up = getattr(self, f"convtr{4 + j}p{2 ** (4 - j)}s2")
             x = up(x, pools[lvl], lv[lvl].valid)
-            x = torch.relu(getattr(self, f"bntr{4 + j}")(x, lv[lvl].valid))
+            x = getattr(self, f"bntr{4 + j}")(x, lv[lvl].valid, act="relu")
             x = torch.cat([x, skips[lvl]], dim=1)
             x = getattr(self, f"block{5 + j}")(x, lv[lvl].nbr3, lv[lvl].valid)
         return x  # [cap0, planes[7] x expansion]

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "gcd_gather_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -41,6 +41,13 @@ SIGNATURES = {
     "gcd_tile_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gcd_onehot_conv_scratch": (_I, _I, _I),
     "gcd_onehot_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gcd_bn_blocks": (_I, _I, _I),
+    "gcd_bn_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gcd_bn_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I,
+                     _P),
+    "gcd_bn_grad_sums": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                         _I, _I, _P),
+    "gcd_bn_grad_x": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
 }
 
 RESTYPES = {"gcd_window_sum_plan": _L}  # entries that return other than a CUDA error code (int)

@@ -156,7 +156,10 @@ def test_kernel_wrappers_take_plain_version_on_cpu(plan):
 
 @pytest.mark.parametrize("train", [True, False])
 def test_batch_norm_matches_jax(train):
-    """Masked BN: output and, in training, the running-statistics update."""
+    """Masked BN: output and, in training, the running-statistics update;
+    then the norm with the residual add and the ReLU folded in (its plain
+    version on the CPU), output, gradients and statistics bit for bit the
+    eager composition it replaces."""
     rng = np.random.default_rng(5)
     n, c = 300, 24
     x = rng.standard_normal((n, c)).astype(np.float32) * 3 + 1
@@ -186,3 +189,32 @@ def test_batch_norm_matches_jax(train):
     np.testing.assert_allclose(tbn.running_var.numpy(),
                                np.asarray(mut["batch_stats"]["var"]), rtol=1e-6, atol=1e-6)
     assert np.all(tout.numpy()[~valid] == 0)
+
+    state = {"weight": torch.as_tensor(scale), "bias": torch.as_tensor(bias),
+             "running_mean": torch.as_tensor(mean0), "running_var": torch.as_tensor(var0)}
+    residual = torch.as_tensor(rng.standard_normal((n, c)).astype(np.float32) * valid[:, None])
+    gz = torch.as_tensor(rng.standard_normal((n, c)).astype(np.float32))
+    for res, act in ((None, "relu"), (residual, "none"), (residual, "relu")):
+        runs = []
+        for fused in (True, False):
+            bn = SparseBatchNorm(c)
+            bn.load_state_dict(state)
+            bn.train(train)
+            xs = torch.as_tensor(x).requires_grad_()
+            rs = None if res is None else res.clone().requires_grad_()
+            if fused:
+                out = bn(xs, torch.as_tensor(valid), rs, act)
+            else:  # the blocks' eager chain: norm, + residual, relu, mask
+                out = bn(xs, torch.as_tensor(valid))
+                if rs is not None:
+                    out = out + rs
+                if act == "relu":
+                    out = torch.relu(out)
+                if rs is not None:
+                    out = out * torch.as_tensor(valid)[:, None]
+            out.backward(gz)
+            runs.append([out.detach(), xs.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                         bn.running_var] + ([] if rs is None else [rs.grad]))
+        for got, want in zip(*runs):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert np.all(runs[0][0].numpy()[~valid] == 0)

@@ -761,6 +761,26 @@ def _check_discover_variants() -> None:
     assert not failures, failures
 
 
+def _fused_norm_matches_plain(plan):
+    """The fused batch norm against its plain version on the card at every
+    (rows, channels) of MinkUNet34 at the Stage-2 caps and at ragged widths
+    9 and 20, bf16 and f32, in training, with frozen statistics and in
+    eval, with and without the residual and the ReLU: outputs, dx,
+    d_residual, dweight / dbias and the running buffers
+    (`chip_smoke.check_norm_case`: bf16 within one ulp, the share off
+    bounded), zero invalid rows, two runs the same bits, the launches a
+    call; a backward without dx; the refusals."""
+    import chip_smoke
+    from gcdlss_tpu_torch.train.common import default_caps
+
+    dev = plan.stem_nbr.device
+    cases = chip_smoke.norm_cases(default_caps(chip_smoke.S2_CAP0))
+    _for_each([(dev, *case) for case in cases], chip_smoke.check_norm_case)
+    chip_smoke.check_norm_case(dev, 243_456, 32, torch.bfloat16, "train", False, "relu",
+                               need_x=False)
+    chip_smoke.norm_refusals(dev)
+
+
 def test_kernel_families(plan):
     """K1/K2 (the plan's and Cylinder3D's books, ragged shapes and a
     misaligned x, all-absent and full books, the wrappers' refusals), K3
@@ -769,7 +789,8 @@ def test_kernel_families(plan):
     builds, refusals) and P1-P4 (every mode of the conv-parts tool, the
     one-hot conv's far entries and adversarial books, the window sums'
     starts and adversarial cases, the product's and the gather sums' ragged
-    shapes, every refusal): every check runs, every failure is reported."""
+    shapes, every refusal) and the fused batch norm: every check runs, every
+    failure is reported."""
     _run_family(plan, [
         _gather_gemm_matches_plain, _gather_gemm_ragged_shapes_and_misaligned_x,
         _gather_gemm_all_absent_and_full_books, _wrappers_reject_wrong_inputs,
@@ -782,7 +803,7 @@ def test_kernel_families(plan):
         _window_sum_refuses_what_the_kernel_does_not_serve, _conv_parts_reject_wrong_inputs,
         _tile_gemm_ragged_shapes, _tile_gemm_refuses_what_the_kernel_does_not_serve,
         _gather_sum_ragged, _onehot_conv_adversarial,
-        _onehot_conv_refuses_what_the_kernel_does_not_serve])
+        _onehot_conv_refuses_what_the_kernel_does_not_serve, _fused_norm_matches_plain])
 
 
 def test_card_paths(plan):

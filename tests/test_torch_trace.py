@@ -17,6 +17,7 @@ import torch
 
 from gcdlss_tpu_torch.data import (SemanticKITTIDataset, build_label_mapping, dataset_meta,
                                    split_table, write_synthetic_kitti)
+from gcdlss_tpu_torch.models.layers import SparseBatchNorm
 from gcdlss_tpu_torch.ops.fused_conv import PoolConvFn, SubmConvFn
 from gcdlss_tpu_torch.train import common
 from gcdlss_tpu_torch.train.discover import DiscoverConfig
@@ -103,8 +104,10 @@ def test_stage2_steps_record_their_spans_and_counters(setup, tmp_path, monkeypat
     the take that ends the pass), the plan's spans in both plans, one
     `conv/fwd` a conv forward (counted at the Functions' `apply`) and one
     `conv/bwd` a student conv's backward, every conv span inside one of the
-    four passes; the counters of the batches' bytes and of the loaders'
-    takes."""
+    four passes; one `norm/fwd` a batch norm in each of the three forward
+    passes and one `norm/bwd` a norm in each student backward, inside the
+    passes and outside the conv spans; the counters of the batches' bytes
+    and of the loaders' takes."""
     applied = []
     for fn in (SubmConvFn, PoolConvFn):
         def counted(*args, _apply=fn.apply):
@@ -143,6 +146,12 @@ def test_stage2_steps_record_their_spans_and_counters(setup, tmp_path, monkeypat
     assert 3 * count["conv/bwd"] == 2 * count["conv/fwd"]
     passes = [s for p in PASSES for s in spans[p]]
     assert all(_inside(s, passes) for s in spans["conv/fwd"] + spans["conv/bwd"])
+    norms = sum(isinstance(m, SparseBatchNorm) for m in exp.state.student.modules())
+    assert norms == 30  # MinkUNet14: bn0, bn1-4, bntr4-7, two a block, five projections
+    assert (count["norm/fwd"], count["norm/bwd"]) == (3 * norms * steps, 2 * norms * steps)
+    norm_spans = spans["norm/fwd"] + spans["norm/bwd"]
+    convs = spans["conv/fwd"] + spans["conv/bwd"]
+    assert all(_inside(s, passes) and not _inside(s, convs) for s in norm_spans)
     for a, b in zip(spans["step/fetch"][:steps], spans["step"]):
         assert a[1] <= b[0]  # the fetch lies outside the step it feeds
 
