@@ -5,6 +5,10 @@ and its `train_epoch` over the labeled and unlabeled `PrefetchLoader`s of
 `make_loaders`, on SemanticKITTI datasets of a synthetic tree that set-up
 writes under TMPDIR.
 
+The configuration's `reference_model` names the backbone's plain reference
+(`reference.backbone`): its leaves give the weights, its forward the
+reference's passes, its `pass_work` the traced run's work counts.
+
 Set-up builds the one module, gives it the benchmark's weights (drawn from
 the seed on the device), starts the loaders once, and drives the first
 `checked_steps` steps through `train_epoch` on the loaders' feed: they
@@ -36,8 +40,8 @@ import numpy as np
 import torch
 
 from .. import compare, counts, scans, weights
+from ..reference import backbone
 from ..reference import data as ref_data
-from ..reference import minkunet as ref_minkunet
 from ..reference import sparse as ref_sparse
 from ..reference import stage2 as ref_stage2
 
@@ -224,6 +228,17 @@ def mining_check(cfg: dict, log: list, device) -> dict:
     return {"mining_gap": worst, "queue_gap": queue_bad}
 
 
+def spin_ms(n: int = 200_000) -> float:
+    """Milliseconds of a fixed loop of Python additions on this thread: how
+    fast the host runs the main thread's Python at this moment, beside the
+    load average, which a sandboxed kernel may read as 0."""
+    t = time.perf_counter()
+    x = 0
+    for i in range(n):
+        x += i
+    return 1e3 * (time.perf_counter() - t)
+
+
 def run(cfg: dict, seed: int, seconds: float, trace: bool, device, t_start: float,
         workdir: Path) -> dict:
     """One run of the cell. Returns the end-to-end values, the per-layer
@@ -232,7 +247,7 @@ def run(cfg: dict, seed: int, seconds: float, trace: bool, device, t_start: floa
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    spec = ref_minkunet.spec(cfg)
+    spec = backbone(cfg["reference_model"]).spec(cfg)
     phases = {"imports": time.perf_counter() - t_start}
     with tempfile.TemporaryDirectory(prefix="bench-tree-") as tmp:
         tree = make_tree(Path(tmp), cfg, sd["tree"])
@@ -296,12 +311,16 @@ def run(cfg: dict, seed: int, seconds: float, trace: bool, device, t_start: floa
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
             prof = profile(activities=acts)
             prof.__enter__()
+        load_start, spin_start = os.getloadavg(), spin_ms()
+        cpu_start = time.process_time()
         t0 = time.perf_counter()
         with torch.profiler.record_function("bench/window"):
             module.train_epoch(lab.until(t0 + seconds), unlab.each())
             if on_card:
                 torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
+        host = {"window_cpu_s": time.process_time() - cpu_start, "load_start": load_start,
+                "load_end": os.getloadavg(), "spin_ms": [spin_start, spin_ms()]}
         if prof is not None:
             prof.__exit__(None, None, None)
         window_peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -343,7 +362,8 @@ def run(cfg: dict, seed: int, seconds: float, trace: bool, device, t_start: floa
         "step_ms": [s["step_ms"] for s in steps], "loader_wait_s": waits, "voxels": voxels,
         "step_metrics": {k: [s[k] for s in steps] for k in ("n_cand", "n_rel", "has_novel",
                                                             "plan_overflow")},
-        "launches": launches, "workers": workers, "trace_file": trace_file, "work": work,
+        "launches": launches, "workers": workers, "host": host, "trace_file": trace_file,
+        "work": work,
         "numbers": nums, "program": prog, "reference": ref, "setup_phases": phases}
 
 
@@ -390,7 +410,8 @@ def reference_side(cfg, tree, sd, device, params0, stats0, program_batches, quan
                                   (False, cfg["caps"][0] - cfg["sup_voxel_cap"]))]
         mismatch = sum(_mismatch(pb, rb) for (pl, pu), rl, ru in
                        zip(program_batches, *sides) for pb, rb in ((pl, rl), (pu, ru)))
-        step = ref_stage2.Stage2(cfg, params0, stats0, sd["model"], device, quant)
+        step = ref_stage2.Stage2(backbone(cfg["reference_model"]), cfg, params0, stats0,
+                                 sd["model"], device, quant)
         init = {**{k: v.detach().clone() for k, v in step.params.items()},
                 "tau": step.tau.detach().clone()}
         init_stats = {**{f"student.{k}": v.clone() for k, v in step.stats.items()},
@@ -446,6 +467,7 @@ def window_work(cfg: dict, batches: list, sd: dict, device) -> dict:
     """Model operations and conv bounds of the window's steps, counted from
     the benchmark's plans of the batches the window trained on. The mixed
     plan's band count is the step's draw, replayed from the seed."""
+    pass_work = backbone(cfg["reference_model"]).pass_work
     g = torch.Generator(device=device).manual_seed(sd["model"])
     n = cfg["cand_cap"] + cfg["queue_slots"] * cfg["queue_per_slot"]
     for _ in range(cfg["checked_steps"]):
@@ -458,7 +480,7 @@ def window_work(cfg: dict, batches: list, sd: dict, device) -> dict:
             torch.rand(n, generator=g, device=device)
             plan, mix = plans_of(cfg, sup["voxel"], unsup["voxel"],
                                  ref_stage2.NUM_AREAS[pick], device)
-            for k, v in counts.stage2_step(plan, mix, cfg).items():
+            for k, v in counts.stage2_step(plan, mix, cfg, pass_work).items():
                 total[k] += v
     total["steps"] = len(batches)
     return total
@@ -497,7 +519,11 @@ def summary(res: dict) -> str:
                        "step_ms": [round(x, 1) for x in res["step_ms"]],
                        "loader_wait_ms": [round(1e3 * x, 1) for x in res["loader_wait_s"]],
                        "voxels_a_step": res["voxels"], "setup_s": res["setup_s"],
-                       "setup_phases_s": res["setup_phases"]})
+                       "setup_phases_s": res["setup_phases"],
+                       "host_load_start": res["host"]["load_start"],
+                       "host_load_end": res["host"]["load_end"],
+                       "host_spin_ms": res["host"]["spin_ms"],
+                       "window_cpu_s": res["host"]["window_cpu_s"]})
 
 
 def control(cfg: dict, seed: int, device, quant=None, drop_half: bool = False) -> dict:
@@ -507,8 +533,8 @@ def control(cfg: dict, seed: int, device, quant=None, drop_half: bool = False) -
     sd = seeds(seed)
     with tempfile.TemporaryDirectory(prefix="bench-tree-") as tmp:
         tree = make_tree(Path(tmp), cfg, sd["tree"])
-        params0, stats0 = weights.make(ref_minkunet.spec(cfg), sd["weights"],
-                                       device)
+        params0, stats0 = weights.make(backbone(cfg["reference_model"]).spec(cfg),
+                                       sd["weights"], device)
         ref, _ = reference_side(cfg, tree, sd, device, params0, stats0, [])
         bad, _ = reference_side(cfg, tree, sd, device, params0, stats0, [], quant, drop_half)
     nums = compare.numbers(bad, ref)

@@ -15,6 +15,8 @@ last level-0 features: `final` (known classes), `final2` (NCC heads) and
 
 Parameters and statistics are dicts keyed by the names of GCDLSS's
 checkpoints (`encoder.block1.0.conv1.kernel`, ...), kernels [K, Ci, Co].
+A reference backbone (the contract in `reference/__init__.py`): `spec`,
+`forward` and `pass_work`.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .sparse import QuantMatmul, conv
+from .work import bound_ms, conv_work, dense_ops, pairs
 
 
 def spec(cfg: dict) -> dict:
@@ -132,3 +135,47 @@ def forward(params: dict, stats: dict, plan, feats: torch.Tensor, cfg: dict,
 
     return {"feats": x, "known": head("final"), "ncc": head("final2"), "novel": head("final3")}
 
+
+
+def pass_work(plan, cfg: dict, grad: bool) -> dict:
+    """{"conv_ops", "conv_bound_ms", "dense_ops"} of one MinkUNet pass over a
+    reference `Plan`: forward, and with `grad` its backward (the stem's input
+    needs no gradient)."""
+    lv = plan.levels
+    planes, nblocks, c = cfg["planes"], cfg["blocks"], cfg["init_dim"]
+    ab = cfg.get("act_bytes", 2)
+    convs, dense = [], 0
+
+    def sub(book, level, ci, co, need_dx=True):
+        convs.extend(conv_work(pairs(book), len(book), ci, co, lv[level].n, lv[level].n, ab,
+                               grad, need_dx))
+
+    def stack(level, cin, width, n):
+        nonlocal dense
+        for b in range(n):
+            ci = cin if b == 0 else width
+            sub(plan.cube[level], level, ci, width)
+            sub(plan.cube[level], level, width, width)
+            if ci != width:
+                dense += dense_ops(lv[level].n, ci, width, grad)
+
+    sub(plan.stem, 0, cfg["in_channels"], c, need_dx=False)
+    skips = [c]
+    for i in range(4):
+        book = plan.down[i]
+        convs.extend(conv_work(pairs(book), 8, c, c, lv[i + 1].n, lv[i].n, ab, grad))
+        stack(i + 1, c, planes[i], nblocks[i])
+        c = planes[i]
+        skips.append(c)
+    for j in range(4):
+        lvl = 3 - j
+        book = plan.up[lvl]
+        convs.extend(conv_work(pairs(book), 8, c, planes[4 + j], lv[lvl].n, lv[lvl + 1].n, ab,
+                               grad))
+        stack(lvl, planes[4 + j] + skips[lvl], planes[4 + j], nblocks[4 + j])
+        c = planes[4 + j]
+    heads = cfg["num_known"] + cfg["ncc_heads"] + cfg["num_novel"]
+    dense += dense_ops(lv[0].n, c, heads, grad)
+    return {"conv_ops": sum(o for _, o, _ in convs),
+            "conv_bound_ms": sum(bound_ms(b, o)[0] for _, o, b in convs),
+            "dense_ops": dense}

@@ -1,12 +1,13 @@
 """Plain PyTorch reference of GCDLSS's Stage-2 training step (mean teacher,
 voxel LaserMix, NCC candidate mining with k-means and a Hungarian match),
-in float32, for MinkUNet.
+in float32, over the backbone it is given: a reference module by the
+contract of `reference/__init__.py` (`forward` and its three heads).
 
 One step, as `ExpMergeDiscover_LaserMix_MeanTeacher_NCCAdaptive` defines it:
   * the combined plan of the labeled scans (batch 0..S-1) and the unlabeled
     ones (S..2S-1);
-  * the teacher's forward (batch norm in training mode, no gradient): its
-    logits [known | max NCC] and their softmax;
+  * the teacher's forward of the backbone (batch norm in training mode, no
+    gradient): its logits [known | max NCC] and their softmax;
   * the LaserMix plan: each level-0 voxel of pair i goes to mixed scan i if
     its centre's pitch band (of num_areas between -25 and 3 degrees, counted
     from the top) is even on the labeled side or odd on the unlabeled one,
@@ -36,7 +37,6 @@ import math
 
 import torch
 
-from . import minkunet
 from .sparse import Plan, pack
 
 NUM_AREAS = (3, 4, 5, 6)
@@ -133,10 +133,12 @@ def push(queue: torch.Tensor, counts: torch.Tensor, head: int, cand_feats, rel):
 class Stage2:
     """The step's state: parameters, batch-norm statistics of the student and
     the teacher, the teacher's parameters, tau, momentum buffers, the queue
-    and the generator of the step's draws."""
+    and the generator of the step's draws. `backbone` is the reference module
+    whose `forward` makes the three passes."""
 
-    def __init__(self, cfg: dict, params: dict, stats: dict, seed: int, device, quant=None):
-        self.cfg, self.quant, self.device = cfg, quant, device
+    def __init__(self, backbone, cfg: dict, params: dict, stats: dict, seed: int, device,
+                 quant=None):
+        self.backbone, self.cfg, self.quant, self.device = backbone, cfg, quant, device
         self.params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
         self.tau = torch.tensor(cfg["tau_init"], device=device, requires_grad=True)
         self.teacher = {k: v.clone() for k, v in params.items()}
@@ -185,7 +187,7 @@ class Stage2:
             raise ValueError("level 0 over its capacity")
 
         with torch.no_grad():
-            out_t = minkunet.forward(self.teacher, self.teacher_stats, plan, feats0, cfg, q)
+            out_t = self.backbone.forward(self.teacher, self.teacher_stats, plan, feats0, cfg, q)
             dummy_t = torch.cat([out_t["known"], out_t["ncc"].max(-1, keepdim=True).values], -1)
             probs_t = torch.softmax(dummy_t, dim=-1)
             maxp_t, argm_t = probs_t.max(dim=-1)
@@ -227,14 +229,14 @@ class Stage2:
             rel, n_rel, has_novel, mapped_novel = m["rel"], m["n_rel"], m["has_novel"], m["mapped"]
 
         # the student's passes and the loss
-        out_s = minkunet.forward(P, self.stats, plan, feats0, cfg, q)
+        out_s = self.backbone.forward(P, self.stats, plan, feats0, cfg, q)
         dummy_s = torch.cat([out_s["known"], out_s["ncc"].max(-1, keepdim=True).values], -1)
         sup_t = torch.where(is_sup, mapped0, -1)
         l_sup = ce(dummy_s, sup_t)
         um = (~is_sup).to(torch.float32)[:, None]
         d2 = (torch.softmax(dummy_s, -1) - probs_t).square()
         l_mse = cfg["mse_coeff"] * (d2 * um).sum() / (um.sum() * d2.shape[1]).clamp(min=1)
-        out_m = minkunet.forward(P, self.stats, mix_plan, mix_feats0, cfg, q)
+        out_m = self.backbone.forward(P, self.stats, mix_plan, mix_feats0, cfg, q)
         dummy_m = torch.cat([out_m["known"], out_m["ncc"].max(-1, keepdim=True).values], -1)
         l_lm = cfg["lasermix_coeff"] * ce(dummy_m, mix_labels0)
         gt = torch.nn.functional.one_hot(sup_t.clamp(0, K), K + 1).bool()

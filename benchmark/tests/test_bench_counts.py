@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from benchmark import counts, peaks, trace
+from benchmark.reference import minkunet
 from benchmark.reference.sparse import Plan, cube_book
 
 
@@ -52,12 +53,12 @@ def test_pass_counts_forward_and_backward():
     plan = _plan()
     cfg = dict(arch="MinkUNet14", planes=[8, 8, 8, 8, 8, 8, 8, 8], blocks=[1] * 8, init_dim=8,
                in_channels=1, num_known=2, ncc_heads=1, num_novel=1)
-    fwd = counts.minkunet_pass(plan, cfg, grad=False)
-    both = counts.minkunet_pass(plan, cfg, grad=True)
+    fwd = minkunet.pass_work(plan, cfg, grad=False)
+    both = minkunet.pass_work(plan, cfg, grad=True)
     stem = 2 * counts.pairs(plan.stem) * 1 * 8
     # backward adds dX and dW to every conv but the stem, which adds dW only
     assert both["conv_ops"] == 3 * fwd["conv_ops"] - stem
-    step = counts.stage2_step(plan, plan, cfg)
+    step = counts.stage2_step(plan, plan, cfg, minkunet.pass_work)
     assert step["conv_ops"] == fwd["conv_ops"] + 2 * both["conv_ops"]
 
 

@@ -48,6 +48,10 @@ def test_tiny_run_is_correct(tiny_cell):
     assert {"peak_mem_gib", "setup_s"} < set(res["metrics"])
     assert out["checks"]["loader_mismatch"]["value"] == 0
     assert list(out["checks"])[-1] == "change_gap"
+    # the host's load beside the run: printed, never compared
+    summary = json.loads(tiny_cell["entry"].summary(out["run"]))
+    assert {"host_load_start", "host_load_end", "host_spin_ms", "window_cpu_s"} <= set(summary)
+    assert summary["window_cpu_s"] > 0 and min(summary["host_spin_ms"]) > 0
 
 
 def test_tiny_traced_run_reads_every_metric_it_can(tiny_cell):

@@ -9,7 +9,8 @@ import torch
 
 
 def make(spec: dict, seed: int, device) -> tuple:
-    """(params, stats): dicts of name -> tensor, per `reference.minkunet.spec`."""
+    """(params, stats): dicts of name -> tensor, per a reference backbone's
+    `spec` (`reference/__init__.py`)."""
     normal = [(k, shape, init[1]) for k, (shape, init) in spec.items() if init[0] == "normal"]
     total = sum(torch.Size(shape).numel() for _, shape, _ in normal)
     g = torch.Generator(device=device).manual_seed(seed)
